@@ -1,0 +1,128 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` compiles with nvcc for `sm_90a` into its own shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers,
+so a build takes seconds). Libraries are built at first use into
+`ruvector_tpu_torch/_build/` (git-ignored), named by a hash of the source
+and flags so an edited source rebuilds. `build()` starts one nvcc per
+source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("neighbor_mix", "block_dense_attn")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points of each library: argument types (every one returns the
+# cudaError_t of its launch as an int)
+SIGNATURES = {
+    "neighbor_mix": {
+        "neighbor_mix_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
+    },
+    "block_dense_attn": {
+        "block_dense_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "block_dense_layer_fused": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
+    },
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    candidates = [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    if os.environ.get("CUDA_HOME"):
+        candidates.insert(0, os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    for cand in candidates:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def log_path(name: str) -> Path:
+    """The nvcc output (ptxas register and spill report) of the last build."""
+    return library_path(name).with_suffix(".log")
+
+
+def build(names=SOURCES) -> float:
+    """Compile every library in `names` that is not built yet, one nvcc per
+    source, all started together. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = open(log_path(name), "w")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        jobs.append((name, out, tmp, log,
+                     subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, log, proc in jobs:
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        else:
+            failed.append(f"{name} (nvcc rc={rc}):\n{log_path(name).read_text()[-4000:]}")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build((name,))
+        lib = ctypes.CDLL(str(path))
+        lib.rvt_error_string.argtypes = [ctypes.c_int]
+        lib.rvt_error_string.restype = ctypes.c_char_p
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.rvt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """The current CUDA stream of tensor t's device, as a C pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, what: str) -> None:
+    """Input check of a kernel wrapper: raise ValueError unless cond."""
+    if not cond:
+        raise ValueError(what)

@@ -1,0 +1,146 @@
+"""The port stands alone: it imports neither jax nor ruvector_tpu, its
+entry points default to the CUDA card (and raise without one instead of
+running on the CPU), and its kernel wrappers take the plain version only
+for CPU tensors — never for a device tensor, and never counting a launch.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import ruvector_tpu_torch.ops.kernels as kernels
+from ruvector_tpu_torch import resolve_device
+from ruvector_tpu_torch.convert import params_from_numpy
+from ruvector_tpu_torch.graph import NeighborGraph, build_block_dense, build_knn_graph
+from ruvector_tpu_torch.models import RuvectorNetConfig, ruvector_net_init
+from ruvector_tpu_torch.nn.ruvector_layer import RuvectorLayerConfig, ruvector_layer_init
+from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
+    block_dense_attention,
+    block_dense_layer_fused,
+)
+from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import ruvector_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ruvector_tpu_torch.__path__, "ruvector_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ruvector_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_imports_no_jax_and_no_jax_package():
+    """Whole module names: `ruvector_tpu_torch` starts with `ruvector_tpu`."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20
+    assert bad == "[]"
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+
+
+_ENTRY_POINTS = {
+    "resolve_device": lambda: resolve_device(),
+    "ruvector_layer_init": lambda: ruvector_layer_init(0, RuvectorLayerConfig(8, 8, heads=2)),
+    "ruvector_net_init": lambda: ruvector_net_init(0, RuvectorNetConfig(8, 8)),
+    "params_from_numpy": lambda: params_from_numpy({"w": np.zeros(3, np.float32)}),
+    "from_lists": lambda: NeighborGraph.from_lists([[1], [0]]),
+    "build_knn_graph": lambda: build_knn_graph(np.eye(4, dtype=np.float32), k=2),
+    "build_block_dense": lambda: build_block_dense(
+        np.zeros((4, 1), np.int32), np.ones((4, 1), np.float32),
+        np.ones((4, 1), np.float32), block=4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_points_raise_without_card(name):
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _ENTRY_POINTS[name]()
+
+
+def test_cpu_requested_explicitly_runs():
+    assert resolve_device("cpu") == torch.device("cpu")
+    params = ruvector_layer_init(0, RuvectorLayerConfig(8, 8, heads=2), device="cpu")
+    assert params["w_msg"]["kernel"].device.type == "cpu"
+
+
+def _k3_inputs(device):
+    n, h, m, d = 5, 2, 3, 32
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(s, generator=g).to(device)
+            for s in ((n, h, d), (n, h), (n, m, d), (n, m), (n, m))]
+
+
+def _k2_inputs(device):
+    g = torch.Generator().manual_seed(1)
+    L = torch.randn(1, 64, 32, generator=g)
+    u = torch.randn(2, 1, 8, 32, generator=g)
+    sb = torch.randn(2, 1, 8, generator=g)
+    wd = torch.rand(1, 8, 64, generator=g)
+    return [x.to(device) for x in (L, u, sb, wd)]
+
+
+def _k1_inputs(device):
+    from ruvector_tpu_torch.ops.kernels.block_dense_attn import _folded_shapes
+
+    g = torch.Generator().manual_seed(2)
+    L, _, _, wd = _k2_inputs(device)
+    msg = torch.randn(1, 8, 32, generator=g).to(device)
+    folded = {k: torch.randn(s, generator=g).to(device)
+              for k, s in _folded_shapes(2, 32).items()}
+    return L, msg, wd, folded
+
+
+def _run(kernel, device):
+    if kernel == "fused_neighbor_mix":
+        return fused_neighbor_mix(*_k3_inputs(device), heads=2, scale=0.5)
+    if kernel == "block_dense_attention":
+        return block_dense_attention(*_k2_inputs(device), scale=0.5)
+    return block_dense_layer_fused(*_k1_inputs(device), dropout=0.0, eps=1e-5)
+
+
+_KERNELS = ["fused_neighbor_mix", "block_dense_attention", "block_dense_layer_fused"]
+
+
+@pytest.mark.parametrize("kernel", _KERNELS)
+def test_cpu_tensors_take_plain_version_without_counting(kernel):
+    kernels.reset_launch_counts()
+    out = _run(kernel, "cpu")
+    assert torch.isfinite(out.float()).all()
+    assert kernels.launch_counts() == {k: 0 for k in _KERNELS}
+
+
+@pytest.mark.parametrize("kernel", _KERNELS)
+def test_non_cpu_tensors_never_fall_back(kernel):
+    """A tensor off the CPU goes to the kernel path: here (a `meta` tensor,
+    no kernel for it) that must raise, not quietly compute the plain
+    version."""
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="unsupported device"):
+        _run(kernel, "meta")
+    assert kernels.launch_counts()[kernel] == 0
+
+
+def test_kernel_build_dir_is_ignored():
+    from ruvector_tpu_torch.ops.kernels import _lib
+
+    assert _lib.BUILD_DIR == REPO / "ruvector_tpu_torch" / "_build"
+    assert "ruvector_tpu_torch/_build/" in (REPO / ".gitignore").read_text().split()
+    assert all((_lib.CSRC_DIR / f"{s}.cu").exists() for s in _lib.SOURCES)
+    assert set(_lib.SIGNATURES) == set(_lib.SOURCES)
+    assert all("sm_90a" in f for f in _lib.NVCC_FLAGS if "arch=" in f)
