@@ -61,6 +61,16 @@ class BlockDenseGraph:
     def table(self) -> int:
         return self.local_ids.shape[1]
 
+    def wdense_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """wdense in `dtype`, cast once and kept with the graph (the gated
+        layer kernels read a bf16 edge table in bf16 compute mode)."""
+        if self.wdense.dtype == dtype:
+            return self.wdense
+        casts = self.__dict__.setdefault("_wdense_casts", {})
+        if dtype not in casts:
+            casts[dtype] = self.wdense.to(dtype)
+        return casts[dtype]
+
     def pad_features(self, features: torch.Tensor) -> torch.Tensor:
         """Scatter [N, D] node features into the padded [nB*B, D] layout."""
         f = torch.as_tensor(features).to(self.wdense.device)

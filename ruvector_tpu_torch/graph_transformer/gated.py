@@ -1,0 +1,536 @@
+"""Partitioned min-cut-gated graph transformer (BASELINE config 5).
+
+Port of ruvector_tpu/graph_transformer/gated.py. Partitions are the
+block-dense blocks (graph/block_dense.py), so one layer is three batched
+sublayers over the [nB, B, D] layout:
+
+  1. intra-partition min-cut-gated MHA: one push-relabel gate per
+     partition over the head-mean ("pooled") logits, the mask shared by
+     the heads (ruvector-attn-mincut/src/gating.rs:70-102);
+  2. cross-partition neighbour mixing with the graph's normalized edge
+     weights;
+  3. a pre-norm FFN (GELU, tanh approximation).
+
+Temporal gate reuse: `gate_state_init` solves every partition's gate once
+and records a per-partition signature (the mean positive pooled logit);
+`gated_graph_transformer_step` re-solves only the partitions whose
+signature drifted past the hysteresis band, oldest first, under a
+re-solve budget, and runs each layer under the refreshed masks.
+
+Kernel route (`fused_gate_attn`): "auto" takes it for CUDA tensors,
+"always" forces it (CPU tensors then run the kernels' plain versions),
+"never" runs the plain sublayer composition. On the kernel route the
+wrappers raise on shapes their kernels do not take (D other than 32, 64
+or 128; more than 8 heads; B > 512). On a halo-free layout with
+B % 32 == 0 the route runs four kernels: the LN-folded signature (K6c),
+the push-relabel gate (K7), the fused layer (K4a) and the fused layer
+that also emits the next layer's signature (K4b). Two parts of the route
+are not ported yet and run their plain versions on the card: with a halo
+the layer is the plain sublayer composition (the JAX package's gated MHA
+kernel, K5a), and with B % 32 != 0 the signature and the gate are the
+plain ones (the signature without LN, K6b; the JAX package's gate is
+plain there too). Both come with the training slice. The JAX package's
+chunked routes (`_ceil_chunked_map`, `_CHUNK_NB`) exist to fit 10M nodes
+into 16 GB of TPU memory and are not ported: the straight path runs at
+every nB.
+
+The step branches on the host where JAX uses `lax.cond` (any partition
+flagged?), which is one device-to-host sync per layer per step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import torch
+
+from ruvector_tpu_torch.attention.mincut_device import mincut_gate_device
+from ruvector_tpu_torch.device import resolve_device
+from ruvector_tpu_torch.graph.block_dense import BlockDenseGraph
+from ruvector_tpu_torch.nn.core import (
+    layer_norm_apply,
+    layer_norm_init,
+    linear_init,
+    make_generator,
+    xavier_normal,
+)
+from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
+    block_gate_signature_ln_x,
+    pack_keep,
+    unpack_keep,
+)
+from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
+    fold_gated_layer_params,
+    gated_block_layer,
+    gated_block_layer_with_sig,
+    gelu_tanh,
+)
+from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_from_x
+from ruvector_tpu_torch.ops.segment import masked_softmax
+
+
+@dataclasses.dataclass(frozen=True)
+class GatedGraphTransformerConfig:
+    dim: int
+    num_heads: int = 4
+    ffn_mult: int = 4
+    num_layers: int = 2
+    lam: float = 0.5            # gate threshold multiplier (mincut.rs:163)
+    eps: float = 0.01           # positive-logit clamp
+    # 'pooled': one gate per partition over the head-mean logits, mask
+    # shared across heads; 'per_head': one gate per head (stateless only)
+    gate_mode: str = "pooled"
+    # a partition re-solves when its signature moves by more than this
+    # fraction of its stored value
+    hysteresis_band: float = 0.05
+    # per-step re-solve budget as a fraction of partitions (at least 1)
+    max_resolve_frac: float = 1 / 16
+    # hard staleness bound in steps (0 = pure hysteresis); with it the
+    # budget escalates (a second budget-sized solve) on steps where
+    # partitions reach the bound
+    max_gate_age: int = 0
+    compute_dtype: str = "float32"
+    fused_gate_attn: str = "auto"
+
+    @property
+    def head_dim(self) -> int:
+        assert self.dim % self.num_heads == 0
+        return self.dim // self.num_heads
+
+    @property
+    def cdt(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+
+def gated_graph_transformer_init(seed, cfg: GatedGraphTransformerConfig,
+                                 device=None) -> list[dict]:
+    """Per-layer parameter dicts in the JAX layout ([in, out] kernels),
+    drawn from a torch.Generator seeded with `seed`."""
+    dev = resolve_device(device)
+    gen = make_generator(seed)
+    d = cfg.dim
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "wq": xavier_normal(gen, d, d, dev),
+            "wk": xavier_normal(gen, d, d, dev),
+            "wv": xavier_normal(gen, d, d, dev),
+            "wo": xavier_normal(gen, d, d, dev),
+            "w_gnn": linear_init(gen, d, d, dev),
+            "ln1": layer_norm_init(d, dev),
+            "ln_g": layer_norm_init(d, dev),
+            "ln2": layer_norm_init(d, dev),
+            "ffn_in": linear_init(gen, d, d * cfg.ffn_mult, dev),
+            "ffn_out": linear_init(gen, d * cfg.ffn_mult, d, dev),
+        })
+    return layers
+
+
+def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x @ W + b in float32 (a bf16 x promotes, as in JAX)."""
+    return torch.matmul(x.float(), p["kernel"].float()) + p["bias"].float()
+
+
+def _ln(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm_apply(p, x.float())
+
+
+# ---------------------------------------------------------------------------
+# stateless forward (gates solved inside every call)
+# ---------------------------------------------------------------------------
+
+def _gated_attention_block(h, node_pad, wq, wk, wv, wo, cfg):
+    """Min-cut-gated MHA within each partition. h [nB, B, D], node_pad
+    [nB, B]. Returns ([nB, B, D], (cut_applied [nB, H] bool, cut_cost
+    [nB, H]))."""
+    nb, b, d = h.shape
+    hh, dh = cfg.num_heads, cfg.head_dim
+
+    def proj(w):
+        return torch.matmul(h.float(), w.float()).reshape(nb, b, hh, dh).permute(0, 2, 1, 3)
+
+    q, k, v = proj(wq), proj(wk), proj(wv)
+    padf = node_pad.float()
+    vm = padf[:, None, :, None] * padf[:, None, None, :]
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / dh ** 0.5)
+    logits = torch.where(vm > 0, logits, torch.full_like(logits, -1.0))
+    if cfg.gate_mode == "pooled":
+        keep1, cost1 = mincut_gate_device(torch.mean(logits, dim=1), cfg.lam, cfg.eps)
+        keep = keep1[:, None].expand_as(logits)
+        cost = cost1[:, None].expand(nb, hh)
+    else:
+        keep, cost = mincut_gate_device(logits.reshape(nb * hh, b, b), cfg.lam, cfg.eps)
+        keep, cost = keep.reshape(logits.shape), cost.reshape(nb, hh)
+    attn = masked_softmax(logits, keep.float() * vm)
+    out = torch.matmul(attn, v).permute(0, 2, 1, 3).reshape(nb, b, d)
+    return torch.matmul(out, wo.float()) * padf[..., None], (cost > 0, cost)
+
+
+def _neighbor_mix(h, bdg: BlockDenseGraph, w_gnn):
+    """Cross-partition mean aggregate along graph edges, then W_gnn."""
+    nb, b, d = h.shape
+    local = h if bdg.table == b else h.reshape(nb * b, d)[bdg.local_ids.long()]
+    agg = torch.matmul(bdg.wdense.to(h.dtype).float(), local.float()).to(h.dtype)
+    return _linear(w_gnn, agg)
+
+
+def gated_graph_transformer_apply(params: list[dict], cfg: GatedGraphTransformerConfig,
+                                  fpad: torch.Tensor, bdg: BlockDenseGraph,
+                                  with_stats: bool = False):
+    """Forward over the partitioned graph, gates solved in the call.
+    Returns [nB*B, D] (and with with_stats the per-layer (cut_applied
+    [nB, H], cut_cost [nB, H]))."""
+    nb, b = bdg.n_blocks, bdg.block
+    x = fpad.reshape(nb, b, -1)
+    pad = bdg.node_pad[..., None]
+    stats = []
+    for p in params:
+        a, st = _gated_attention_block(_ln(p["ln1"], x), bdg.node_pad, p["wq"], p["wk"],
+                                       p["wv"], p["wo"], cfg)
+        x = x + a
+        x = x + _neighbor_mix(_ln(p["ln_g"], x), bdg, p["w_gnn"]) * pad
+        h2 = _ln(p["ln2"], x)
+        x = x + _linear(p["ffn_out"], gelu_tanh(_linear(p["ffn_in"], h2))) * pad
+        stats.append(st)
+    out = x.reshape(nb * b, -1)
+    return (out, stats) if with_stats else out
+
+
+# ---------------------------------------------------------------------------
+# temporal gate reuse
+# ---------------------------------------------------------------------------
+
+def _qk_proj(h, wq, wk, cfg):
+    q = torch.matmul(h.float(), wq.float()).to(cfg.cdt)
+    k = torch.matmul(h.float(), wk.float()).to(cfg.cdt)
+    return q, k
+
+
+def _pooled_from_qk(q, k, node_pad, cfg):
+    lg = torch.matmul(q.float(), k.float().transpose(1, 2))
+    lg = lg * (1.0 / (cfg.head_dim ** 0.5) / cfg.num_heads)
+    padf = node_pad.float()
+    valid = padf[:, :, None] * padf[:, None, :]
+    return torch.where(valid > 0, lg, torch.full_like(lg, -1.0))
+
+
+def _fold_sig_params(p, cfg):
+    """A_sig = Wq Wk^T / (sqrt(dh) H): the head-mean pooled-logit matrix,
+    so signatures and gate logits read the features directly."""
+    return torch.matmul(p["wq"].float(), p["wk"].float().T) * (
+        1.0 / (cfg.head_dim ** 0.5) / cfg.num_heads)
+
+
+def _pooled_from_x(h_sel, pad_sel, A_sig):
+    """Pooled logits X A_sig X^T for a subset of partitions, -1.0 on
+    padding pairs."""
+    hf = h_sel.float()
+    lg = torch.matmul(torch.matmul(hf, A_sig), hf.transpose(1, 2))
+    padf = pad_sel.float()
+    valid = padf[:, :, None] * padf[:, None, :]
+    return torch.where(valid > 0, lg, torch.full_like(lg, -1.0))
+
+
+def _gate_signature(pooled, eps):
+    """Per-partition mean positive clamped logit (the gate's lambda proxy)."""
+    clamped = torch.where(pooled > eps, pooled, torch.zeros_like(pooled))
+    npos = torch.sum(clamped > 0, dim=(-2, -1))
+    return torch.sum(clamped, dim=(-2, -1)) / torch.clamp(npos, min=1)
+
+
+def _ln_vectors(p):
+    """A LayerNorm's (gamma, beta) as the kernels take them: float32 [D]."""
+    return p["gamma"].float().contiguous(), p["beta"].float().contiguous()
+
+
+def _row_mean_signature(rsum, rcnt):
+    """Per-partition signature from the kernels' per-row sums and counts."""
+    return torch.sum(rsum, dim=1) / torch.clamp(torch.sum(rcnt, dim=1), min=1.0)
+
+
+def _signature_from_x(x, p, A_sig, node_pad, cfg):
+    """Signature straight from the residual stream, LN1 folded in (K6c)."""
+    rsum, rcnt = block_gate_signature_ln_x(
+        x, node_pad, A_sig, *_ln_vectors(p["ln1"]), eps=cfg.eps,
+        compute_bf16=cfg.compute_dtype == "bfloat16")
+    return _row_mean_signature(rsum, rcnt)
+
+
+def _solve_gates_kernel(x_sel, pad_sel, A_sig, p, cfg):
+    """Batched gate solve with LN1 folded in (K7). Returns keep [K, W, B]."""
+    keep, _ = mincut_gate_block_from_x(
+        x_sel, pad_sel, A_sig, lam=cfg.lam, eps=cfg.eps, ln=_ln_vectors(p["ln1"]),
+        compute_bf16=cfg.compute_dtype == "bfloat16")
+    return keep
+
+
+def _solve_gates_plain(h_sel, pad_sel, A_sig, cfg):
+    """The gate of the plain route: pooled logits of the normalized
+    features, then the batched plain gate."""
+    keep, _ = mincut_gate_device(_pooled_from_x(h_sel, pad_sel, A_sig), cfg.lam, cfg.eps)
+    return pack_keep(keep)
+
+
+def _attention_with_keep(h, node_pad, keep, p, cfg):
+    """MHA within partitions under a fixed keep mask ([nB, B, B] bool,
+    shared by the heads). bf16 compute rounds Q/K/V and the softmax
+    weights to bf16, with float32 sums."""
+    nb, b, d = h.shape
+    hh, dh = cfg.num_heads, cfg.head_dim
+    cdt = cfg.cdt
+
+    def proj(w):
+        y = torch.matmul(h.float(), w.float()).reshape(nb, b, hh, dh).permute(0, 2, 1, 3)
+        return y.to(cdt).float()
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    padf = node_pad.float()
+    vm = padf[:, None, :, None] * padf[:, None, None, :]
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / dh ** 0.5)
+    logits = torch.where(vm > 0, logits, torch.full_like(logits, -1.0))
+    attn = masked_softmax(logits, keep[:, None].float() * vm)
+    out = torch.matmul(attn.to(cdt).float(), v)
+    out = torch.matmul(out.permute(0, 2, 1, 3).reshape(nb, b, d), p["wo"].float())
+    return out * padf[..., None]
+
+
+def _use_fused_attn(cfg, device: torch.device) -> bool:
+    """The kernel route: forced by "always"; under "auto" for CUDA tensors
+    (whose wrappers raise on a shape their kernel does not take)."""
+    return cfg.fused_gate_attn == "always" or (
+        cfg.fused_gate_attn == "auto" and device.type == "cuda")
+
+
+def _ffn_apply(p, h2, pad, out_dtype):
+    """Pre-norm FFN; the hidden and the output rounded to out_dtype."""
+    mid = gelu_tanh(_linear(p["ffn_in"], h2)).to(out_dtype)
+    return _linear(p["ffn_out"], mid).to(out_dtype) * pad[..., None].to(out_dtype)
+
+
+def _compose_layer(cfg, p, x, keep, pad, mix):
+    """One gated layer as plain sublayers. keep [nB, B, B] bool; mix(g)
+    gives the projected neighbour mix of the normalized stream g."""
+    dt = x.dtype
+    h = _ln(p["ln1"], x).to(dt)
+    x = x + _attention_with_keep(h, pad, keep, p, cfg).to(dt)
+    g = _ln(p["ln_g"], x).to(dt)
+    x = x + mix(g).to(dt) * pad[..., None].to(dt)
+    h2 = _ln(p["ln2"], x).to(dt)
+    return x + _ffn_apply(p, h2, pad, dt)
+
+
+def _layer_body_halo_free(cfg, p, x, keep_p, pad, wdense):
+    """The sublayer composition of one gated layer on a halo-free layout
+    (the neighbour mix is one block-local product): the fused layer's
+    reference semantics."""
+    dt = x.dtype
+
+    def mix(g):
+        agg = torch.matmul(wdense.to(dt).float(), g.float()).to(dt)
+        return _linear(p["w_gnn"], agg)
+
+    return _compose_layer(cfg, p, x, unpack_keep(keep_p, x.shape[1]), pad, mix)
+
+
+def _kernel_wdense(cfg, bdg: BlockDenseGraph) -> torch.Tensor:
+    """The edge table the layer kernels read: bf16 in bf16 compute mode
+    (cast once per graph), else as stored."""
+    return bdg.wdense_as(torch.bfloat16) if cfg.compute_dtype == "bfloat16" else bdg.wdense
+
+
+def _fused_layer_halo_free(cfg, p, x, keep_p, pad, wdense):
+    """One-kernel gated layer forward (K4a). Forward-only: the kernel
+    raises on inputs that require grad."""
+    return gated_block_layer(x, keep_p, pad, wdense, fold_gated_layer_params(p, cfg),
+                             compute_bf16=cfg.compute_dtype == "bfloat16")
+
+
+def _use_fused_layer(bdg):
+    """Whole-layer fusion needs every sublayer block-local: halo-free only."""
+    return bdg.table == bdg.block
+
+
+# the step takes the next layer's signature from the fused layer (K4b);
+# False drives it through the standalone signature pass (K6c) instead
+_FUSE_NEXT_SIG = True
+
+
+def _layer_with_keep_emit_sig(p, p_next, cfg, x, bdg, keep_p):
+    """Fused layer plus the next layer's gate signature (K4b). Returns
+    (out, sig_next [nB])."""
+    out, rsum, rcnt = gated_block_layer_with_sig(
+        x, keep_p, bdg.node_pad, _kernel_wdense(cfg, bdg), fold_gated_layer_params(p, cfg),
+        _fold_sig_params(p_next, cfg), *_ln_vectors(p_next["ln1"]),
+        compute_bf16=cfg.compute_dtype == "bfloat16", sig_eps=cfg.eps)
+    return out, _row_mean_signature(rsum, rcnt)
+
+
+def _layer_with_keep(p, cfg, x, bdg, keep_p, fused=False):
+    """One layer under bit-packed masks keep_p [nB, ceil(B/32), B] int32.
+    The kernel route on a halo-free layout is one fused kernel (K4a);
+    otherwise the plain sublayer composition. Every tensor between the
+    sublayers stays in x's dtype."""
+    pad = bdg.node_pad
+    use_fused = fused and _use_fused_attn(cfg, x.device)
+    if use_fused and _use_fused_layer(bdg):
+        return _fused_layer_halo_free(cfg, p, x, keep_p, pad, _kernel_wdense(cfg, bdg))
+    return _compose_layer(cfg, p, x, unpack_keep(keep_p, bdg.block), pad,
+                          lambda g: _neighbor_mix(g, bdg, p["w_gnn"]))
+
+
+def check_gate_age_feasibility(cfg: GatedGraphTransformerConfig, nb: int,
+                               max_resolve: int | None = None) -> bool:
+    """The hard staleness bound (max_gate_age) holds under saturating drift
+    only when nB <= 2 * budget * max_gate_age (the escalation pass doubles
+    the per-step budget on bound-threatening steps). Returns True when the
+    bound is enforceable; warns and returns False otherwise, and returns
+    False without a warning for max_gate_age = 0 (pure hysteresis)."""
+    if cfg.max_gate_age <= 0:
+        return False
+    budget = max_resolve if max_resolve is not None else max(
+        1, int(nb * cfg.max_resolve_frac))
+    if nb > 2 * budget * cfg.max_gate_age:
+        warnings.warn(
+            f"gate staleness bound INFEASIBLE: nB={nb} > 2*budget"
+            f"({budget})*max_gate_age({cfg.max_gate_age}) — under "
+            f"saturating drift the realized mask age can exceed the "
+            f"bound. Raise max_resolve_frac to >= "
+            f"{1 / (2 * cfg.max_gate_age):.4f} "
+            f"(budget >= {-(-nb // (2 * cfg.max_gate_age))}) or "
+            f"max_gate_age to >= {-(-nb // (2 * budget))}.",
+            stacklevel=3)
+        return False
+    return True
+
+
+def gate_state_init(params, cfg: GatedGraphTransformerConfig, fpad, bdg: BlockDenseGraph):
+    """Solve every partition's gate once and record the signatures.
+    Returns {"keep": [L, nB, ceil(B/32), B] int32 (pack_keep), "sig":
+    [L, nB] float32, "age": [L, nB] int32}."""
+    if cfg.gate_mode != "pooled":
+        raise ValueError(
+            "temporal gate reuse operates on the pooled (head-mean) gate "
+            "granularity; use the stateless apply for per_head mode")
+    nb, b = bdg.n_blocks, bdg.block
+    check_gate_age_feasibility(cfg, nb)
+    x = fpad.reshape(nb, b, -1)
+    fused = _use_fused_attn(cfg, x.device)
+    gate_kernel = fused and b % 32 == 0
+    keeps, sigs = [], []
+    for p in params:
+        A_sig = _fold_sig_params(p, cfg)
+        if gate_kernel:
+            keeps.append(_solve_gates_kernel(x, bdg.node_pad, A_sig, p, cfg))
+            sigs.append(_signature_from_x(x, p, A_sig, bdg.node_pad, cfg))
+        else:
+            h = _ln(p["ln1"], x).to(x.dtype)
+            keeps.append(_solve_gates_plain(h, bdg.node_pad, A_sig, cfg))
+            sigs.append(_gate_signature(_pooled_from_x(h, bdg.node_pad, A_sig), cfg.eps))
+        x = _layer_with_keep(p, cfg, x, bdg, keeps[-1], fused=True)
+    age0 = torch.zeros((len(params), nb), dtype=torch.int32, device=x.device)
+    if cfg.max_gate_age > 0:
+        # staggered initial ages, so that the partitions do not all reach
+        # the hard bound on the same step
+        age0 += torch.arange(nb, dtype=torch.int32, device=x.device) % cfg.max_gate_age
+    return {"keep": torch.stack(keeps), "sig": torch.stack(sigs), "age": age0}
+
+
+def _refresh(flagged, drift, keep_prev, sig_prev, age, sig, solve_masks, budget):
+    """Re-solve up to `budget` flagged partitions, oldest first (then by
+    drift; equal scores take the lower index first, as lax.top_k does).
+    Returns (keep, sig, age, number re-solved)."""
+    score = torch.where(flagged, age.float() * 1e6 + drift, torch.full_like(drift, -1.0))
+    idx = torch.sort(score, descending=True, stable=True).indices[:budget]
+    idx = idx[flagged[idx]]
+    keep_l, sig_l, age_l = keep_prev.clone(), sig_prev.clone(), age.clone()
+    if idx.numel():
+        keep_l[idx] = solve_masks(idx)
+        sig_l[idx] = sig[idx]
+        age_l[idx] = 0
+    return keep_l, sig_l, age_l, int(idx.numel())
+
+
+def gated_graph_transformer_step(params, cfg: GatedGraphTransformerConfig, fpad,
+                                 bdg: BlockDenseGraph, state: dict,
+                                 max_resolve: int | None = None):
+    """Forward with temporal gate reuse. Returns (out [nB*B, D], new_state,
+    n_resolved).
+
+    Per layer: the signature, the partitions whose signature drifted past
+    the band (or, with max_gate_age, reached the age bound), a batched
+    re-solve of the oldest max_resolve of them, and the layer under the
+    refreshed masks. Undrifted partitions keep their stored mask.
+    """
+    nb, b = bdg.n_blocks, bdg.block
+    if max_resolve is None:
+        max_resolve = max(1, int(nb * cfg.max_resolve_frac))
+    max_resolve = min(max_resolve, nb)
+    check_gate_age_feasibility(cfg, nb, max_resolve)
+    x = fpad.reshape(nb, b, -1)
+    new_keep, new_sig, new_age = [], [], []
+    resolved = 0
+    ages = state.get("age")
+    if ages is None:
+        ages = torch.zeros((len(params), nb), dtype=torch.int32, device=x.device)
+    fused = _use_fused_attn(cfg, x.device)
+    gate_kernel = fused and b % 32 == 0
+    emit_sig = _FUSE_NEXT_SIG and gate_kernel and _use_fused_layer(bdg)
+    carried_sig = None
+    for li, p in enumerate(params):
+        A_sig = _fold_sig_params(p, cfg)
+        if gate_kernel:
+            sig = (carried_sig if carried_sig is not None
+                   else _signature_from_x(x, p, A_sig, bdg.node_pad, cfg))
+
+            def solve_masks(idx, p=p, A_sig=A_sig, x=x):
+                return _solve_gates_kernel(x[idx].contiguous(),
+                                           bdg.node_pad[idx].contiguous(), A_sig, p, cfg)
+        else:
+            h = _ln(p["ln1"], x).to(x.dtype)
+            sig = _gate_signature(_pooled_from_x(h, bdg.node_pad, A_sig), cfg.eps)
+
+            def solve_masks(idx, h=h, A_sig=A_sig):
+                return _solve_gates_plain(h[idx], bdg.node_pad[idx], A_sig, cfg)
+        prev_sig = state["sig"][li]
+        drift = torch.abs(sig - prev_sig)
+        flagged = drift > cfg.hysteresis_band * (torch.abs(prev_sig) + 1e-6)
+        age = ages[li] + 1
+        if cfg.max_gate_age > 0:
+            flagged = flagged | (age >= cfg.max_gate_age)
+        keep_l, sig_l, age_l = state["keep"][li], prev_sig, age
+        # zero drift: no solve at all (one host sync per layer)
+        if bool(flagged.any()):
+            keep_l, sig_l, age_l, nres = _refresh(flagged, drift, keep_l, sig_l, age_l, sig,
+                                                  solve_masks, max_resolve)
+            resolved += nres
+        if cfg.max_gate_age > 0:
+            # budget escalation: partitions still at or over the age bound
+            # get a second budget-sized solve
+            overflow = age_l >= cfg.max_gate_age
+            if bool(overflow.any()):
+                keep_l, sig_l, age_l, nres = _refresh(overflow, drift, keep_l, sig_l, age_l,
+                                                      sig, solve_masks, max_resolve)
+                resolved += nres
+        new_keep.append(keep_l)
+        new_sig.append(sig_l)
+        new_age.append(age_l)
+        if emit_sig and li + 1 < len(params):
+            x, carried_sig = _layer_with_keep_emit_sig(p, params[li + 1], cfg, x, bdg, keep_l)
+        else:
+            carried_sig = None
+            x = _layer_with_keep(p, cfg, x, bdg, keep_l, fused=True)
+    new_state = {"keep": torch.stack(new_keep), "sig": torch.stack(new_sig),
+                 "age": torch.stack(new_age)}
+    return x.reshape(nb * b, -1), new_state, resolved
+
+
+def gated_graph_transformer_apply_with_masks(params, cfg: GatedGraphTransformerConfig, fpad,
+                                             bdg: BlockDenseGraph, keep_masks):
+    """Forward under fixed bit-packed masks [L, nB, ceil(B/32), B] (from the
+    gate state); no gate solve."""
+    nb, b = bdg.n_blocks, bdg.block
+    x = fpad.reshape(nb, b, -1)
+    for li, p in enumerate(params):
+        x = _layer_with_keep(p, cfg, x, bdg, keep_masks[li], fused=True)
+    return x.reshape(nb * b, -1)

@@ -10,9 +10,17 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
     block_dense_layer_fused,
 )
+from ruvector_tpu_torch.ops.kernels.gated_block_attn import block_gate_signature_ln_x
+from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
+    gated_block_layer,
+    gated_block_layer_with_sig,
+)
+from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_from_x
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
 
-KERNELS = (block_dense_layer_fused, block_dense_attention, fused_neighbor_mix)
+KERNELS = (block_dense_layer_fused, block_dense_attention, fused_neighbor_mix,
+           gated_block_layer, gated_block_layer_with_sig, block_gate_signature_ln_x,
+           mincut_gate_block_from_x)
 
 
 def launch_counts() -> dict[str, int]:
@@ -25,4 +33,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "block_dense_attention", "block_dense_layer_fused",
-           "fused_neighbor_mix", "launch_counts", "reset_launch_counts"]
+           "block_gate_signature_ln_x", "fused_neighbor_mix", "gated_block_layer",
+           "gated_block_layer_with_sig", "launch_counts", "mincut_gate_block_from_x",
+           "reset_launch_counts"]

@@ -23,7 +23,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("neighbor_mix", "block_dense_attn")
+SOURCES = ("neighbor_mix", "block_dense_attn", "gated_block_attn", "mincut_gate_block",
+           "gated_block_layer")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,15 @@ SIGNATURES = {
     "block_dense_attn": {
         "block_dense_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
         "block_dense_layer_fused": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
+    },
+    "gated_block_attn": {
+        "block_gate_signature_ln_x": [_P] * 8 + [_I] * 6 + [_F, _P],
+    },
+    "mincut_gate_block": {
+        "mincut_gate_block_from_x": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    },
+    "gated_block_layer": {
+        "gated_block_layer": [_P] * 12 + [_I] * 9 + [_F, _F, _P],
     },
 }
 
@@ -54,7 +64,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The built library of `csrc/<name>.cu`, named by a hash of the source,
+    the shared headers it may include and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,0 +1,227 @@
+"""Parity of the plain versions of the gated layer kernels against the JAX
+kernels (interpret mode), on the CPU, on the halo-free layout of
+test_gated_graph_transformer.py:724 (_halo_free_setup: n=512, d=32,
+B=128, 4 heads): K4a gated_block_layer, K4b gated_block_layer_with_sig
+and K6c block_gate_signature_ln_x, in f32 and bf16 compute, with a sparse
+keep mask, padding rows and a row with nothing kept.
+
+Tolerances: f32 2e-5 (the JAX fused-layer tests' bound); bf16 4e-2 max and
+8e-3 mean (the JAX bf16 layer bound); signatures: counts equal, sums
+within 2e-6 relative in f32. In bf16 a pooled logit whose float32 sum
+lands on the other side of a bf16 rounding boundary moves by one bf16
+step, so there the sums are held to 1e-3 relative and counts to 0.5% of
+the positive pairs. Against the CUDA kernels the plain versions agree
+bit for bit (the same LayerNorm order, float64 sums); the last two tests
+pin that contract here.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ruvector_tpu.graph import build_block_dense as jbuild
+from ruvector_tpu.graph_transformer.gated import GatedGraphTransformerConfig as JCfg
+from ruvector_tpu.graph_transformer.gated import _fold_sig_params as jfold_sig
+from ruvector_tpu.graph_transformer.gated import gated_graph_transformer_init as jinit
+from ruvector_tpu.graph_transformer.gated import pack_keep as jpack
+from ruvector_tpu.ops.pallas.gated_block_attn import block_gate_signature_ln_x as jk6c
+from ruvector_tpu.ops.pallas.gated_block_attn import fold_gated_attention_params as jfold_attn
+from ruvector_tpu.ops.pallas.gated_block_layer import fold_gated_layer_params as jfold
+from ruvector_tpu.ops.pallas.gated_block_layer import gated_block_layer as jk4a
+from ruvector_tpu.ops.pallas.gated_block_layer import gated_block_layer_with_sig as jk4b
+from ruvector_tpu_torch.convert import params_from_numpy
+from ruvector_tpu_torch.graph import build_block_dense
+from ruvector_tpu_torch.graph_transformer import GatedGraphTransformerConfig
+from ruvector_tpu_torch.graph_transformer.gated import _fold_sig_params
+from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
+    block_gate_signature_ln_x,
+    fold_gated_attention_params,
+    layer_norm_rows,
+    matmul_f64,
+    tree_sum,
+)
+from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
+    FOLDED_KEYS,
+    fold_gated_layer_params,
+    gated_block_layer,
+    gated_block_layer_with_sig,
+)
+
+F32_TOL = 2e-5
+BF16_MAX, BF16_MEAN = 4e-2, 8e-3
+
+
+def _setup(compute="float32", n=500, d=32, block=128, seed=13):
+    """_halo_free_setup's graph, with n not a multiple of the block so the
+    last block has padding rows."""
+    rng = np.random.default_rng(seed)
+    base = (np.arange(n)[:, None] // block) * block
+    idx = np.minimum(base + rng.integers(0, block, (n, 8)), n - 1).astype(np.int32)
+    mask = np.ones((n, 8), np.float32)
+    ew = rng.uniform(0.1, 1.0, (n, 8)).astype(np.float32)
+    jb = jbuild(idx, mask, ew, block=block)
+    tb = build_block_dense(idx, mask, ew, block=block, device="cpu")
+    assert tb.table == tb.block and jb.table == jb.block
+    jc = JCfg(dim=d, num_heads=4, num_layers=2, fused_gate_attn="always",
+              compute_dtype=compute)
+    jp = jinit(jax.random.key(0), jc)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    tc = GatedGraphTransformerConfig(dim=d, num_heads=4, num_layers=2,
+                                     fused_gate_attn="always", compute_dtype=compute)
+    x = rng.normal(size=(tb.n_blocks, block, d)).astype(np.float32)
+    keep = rng.uniform(size=(tb.n_blocks, block, block)) < 0.3
+    keep[0, 5] = False                   # a row with nothing kept
+    kp = np.array(jpack(jnp.asarray(keep)))
+    return (jp, jc, jb), (tp, tc, tb), x, kp
+
+
+def _close(got, want, bf16):
+    got = got.float().numpy()
+    want = np.asarray(want).astype(np.float32)
+    assert got.shape == want.shape and np.all(np.isfinite(got))
+    if bf16:
+        err = np.abs(got - want)
+        assert err.max() < BF16_MAX and err.mean() < BF16_MEAN, (err.max(), err.mean())
+    else:
+        np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=0)
+
+
+def _sig_close(rsum, rcnt, jrsum, jrcnt, bf16):
+    jrsum, jrcnt = np.asarray(jrsum), np.asarray(jrcnt)
+    if bf16:
+        assert np.abs(rcnt.numpy() - jrcnt).sum() <= 0.005 * max(jrcnt.sum(), 1)
+        np.testing.assert_allclose(rsum.numpy().sum(1), jrsum.sum(1), rtol=1e-3)
+    else:
+        np.testing.assert_array_equal(rcnt.numpy(), jrcnt)
+        np.testing.assert_allclose(rsum.numpy(), jrsum, rtol=2e-6, atol=1e-6)
+
+
+def _kernel_args(jside, tside, x, kp, bf16):
+    (jp, jc, jb), (tp, tc, tb) = jside, tside
+    jwd = jb.wdense.astype(jnp.bfloat16) if bf16 else jb.wdense
+    twd = tb.wdense.to(torch.bfloat16) if bf16 else tb.wdense
+    jf = jfold(jp[0], jc)
+    tf = {k: torch.from_numpy(np.array(v)) for k, v in zip(FOLDED_KEYS, jf)}
+    jargs = (jnp.asarray(x), jnp.asarray(kp), jb.node_pad, jwd, jf)
+    targs = (torch.from_numpy(x), torch.from_numpy(kp.view(np.int32)), tb.node_pad, twd, tf)
+    return jargs, targs
+
+
+def test_fold_gated_layer_params_matches():
+    (jp, jc, _), (tp, tc, _), _, _ = _setup()
+    got = fold_gated_layer_params(tp[0], tc)
+    for key, want in zip(FOLDED_KEYS, jfold(jp[0], jc)):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    A, Wvo = fold_gated_attention_params(tp[1], tc)
+    jA, jWvo = jfold_attn(jp[1], jc)
+    np.testing.assert_allclose(A.numpy(), np.asarray(jA), atol=1e-6)
+    np.testing.assert_allclose(Wvo.numpy(), np.asarray(jWvo), atol=1e-6)
+    np.testing.assert_allclose(_fold_sig_params(tp[1], tc).numpy(),
+                               np.asarray(jfold_sig(jp[1], jc)), atol=1e-6)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_k4a_plain_matches_jax(compute):
+    bf16 = compute == "bfloat16"
+    jside, tside, x, kp = _setup(compute)
+    jargs, targs = _kernel_args(jside, tside, x, kp, bf16)
+    reset_launch_counts()
+    got = gated_block_layer(*targs, compute_bf16=bf16)
+    assert launch_counts()["gated_block_layer"] == 0
+    assert got.dtype == torch.float32
+    _close(got, jk4a(*jargs, compute_bf16=bf16), bf16)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_k4b_plain_matches_jax_and_k4a(compute):
+    bf16 = compute == "bfloat16"
+    jside, tside, x, kp = _setup(compute)
+    (jp, jc, _), (tp, tc, _) = jside, tside
+    jargs, targs = _kernel_args(jside, tside, x, kp, bf16)
+    jsig = (jfold_sig(jp[1], jc), jp[1]["ln1"]["gamma"], jp[1]["ln1"]["beta"])
+    tsig = (_fold_sig_params(tp[1], tc), tp[1]["ln1"]["gamma"], tp[1]["ln1"]["beta"])
+    out, rsum, rcnt = gated_block_layer_with_sig(*targs, *tsig, compute_bf16=bf16,
+                                                 sig_eps=tc.eps)
+    jout, jrsum, jrcnt = jk4b(*jargs, *jsig, compute_bf16=bf16, sig_eps=jc.eps)
+    _close(out, jout, bf16)
+    _sig_close(rsum, rcnt, jrsum, jrcnt, bf16)
+    assert torch.equal(out, gated_block_layer(*targs, compute_bf16=bf16))
+    # the emitted signature is K6c's on the written output
+    rs6, rc6 = block_gate_signature_ln_x(out, tside[2].node_pad, *tsig, eps=tc.eps,
+                                         compute_bf16=bf16)
+    assert torch.equal(rs6, rsum) and torch.equal(rc6, rcnt)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_k6c_plain_matches_jax(compute):
+    bf16 = compute == "bfloat16"
+    (jp, jc, jb), (tp, tc, tb), x, _ = _setup(compute)
+    x = 2.0 * x
+    reset_launch_counts()
+    rsum, rcnt = block_gate_signature_ln_x(
+        torch.from_numpy(x), tb.node_pad, _fold_sig_params(tp[0], tc),
+        tp[0]["ln1"]["gamma"], tp[0]["ln1"]["beta"], eps=tc.eps, compute_bf16=bf16)
+    assert launch_counts()["block_gate_signature_ln_x"] == 0
+    jrsum, jrcnt = jk6c(jnp.asarray(x), jb.node_pad, jfold_sig(jp[0], jc),
+                        jp[0]["ln1"]["gamma"], jp[0]["ln1"]["beta"], eps=jc.eps,
+                        compute_bf16=bf16)
+    assert float(rcnt.sum()) > 0
+    _sig_close(rsum, rcnt, jrsum, jrcnt, bf16)
+    # padding rows count nothing
+    assert float(rcnt[tb.node_pad == 0].sum()) == 0.0
+
+
+def test_fused_layer_is_forward_only():
+    _, (tp, tc, tb), x, kp = _setup()
+    folded = fold_gated_layer_params(tp[0], tc)
+    folded["Wg"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        gated_block_layer(torch.from_numpy(x), torch.from_numpy(kp.view(np.int32)),
+                          tb.node_pad, tb.wdense, folded, compute_bf16=False)
+    with torch.no_grad():
+        gated_block_layer(torch.from_numpy(x), torch.from_numpy(kp.view(np.int32)),
+                          tb.node_pad, tb.wdense, folded, compute_bf16=False)
+
+
+def _warp_tree_sum(row: np.ndarray) -> np.float32:
+    """The kernels' row sum (csrc/gated_common.cuh: tree_sum) in float32:
+    lane l adds row[l] + row[l + 64] and row[l + 32] + row[l + 96] (0 past
+    D), then the two, then the warp butterfly over xor 16, 8, 4, 2, 1."""
+    f = np.float32
+    d = len(row)
+    at = lambda c: row[c] if c < d else f(0)  # noqa: E731
+    lanes = [f(f(at(l) + at(l + 64)) + f(at(l + 32) + at(l + 96))) for l in range(32)]
+    for o in (16, 8, 4, 2, 1):
+        lanes = [f(lanes[l] + lanes[l ^ o]) for l in range(32)]
+    assert len({v.tobytes() for v in lanes}) == 1
+    return lanes[0]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_plain_layer_norm_rounds_as_the_kernels(d):
+    """The plain versions' LayerNorm sums in the kernels' order bit for bit
+    (so kernel and plain gate logits agree exactly), and is a LayerNorm."""
+    rng = np.random.default_rng(d)
+    rows = (rng.normal(size=(64, d)) * 10.0 ** rng.uniform(-3, 3, size=(64, d)))
+    rows = rows.astype(np.float32)
+    got = tree_sum(torch.from_numpy(rows))[:, 0].numpy()
+    want = np.array([_warp_tree_sum(r) for r in rows], np.float32)
+    assert got.tobytes() == want.tobytes()
+    x = torch.from_numpy(rng.normal(size=(8, 16, d)).astype(np.float32))
+    g, b = torch.rand(d) + 0.5, torch.randn(d)
+    torch.testing.assert_close(layer_norm_rows(x, g, b),
+                               torch.nn.functional.layer_norm(x, (d,), g, b, eps=1e-5),
+                               rtol=0.0, atol=2e-6)
+
+
+def test_matmul_f64_rounds_once():
+    """Sums of bf16 products in float64 are exact, so any order of the
+    terms gives the same float32 result."""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(size=(4, 32, 128)).astype(np.float32)).bfloat16().float()
+    w = torch.from_numpy(rng.normal(size=(128, 64)).astype(np.float32)).bfloat16().float()
+    perm = torch.from_numpy(rng.permutation(128))
+    assert torch.equal(matmul_f64(a, w), matmul_f64(a[..., perm], w[perm]))

@@ -16,12 +16,22 @@ import ruvector_tpu_torch.ops.kernels as kernels
 from ruvector_tpu_torch import resolve_device
 from ruvector_tpu_torch.convert import params_from_numpy
 from ruvector_tpu_torch.graph import NeighborGraph, build_block_dense, build_knn_graph
+from ruvector_tpu_torch.graph_transformer import (
+    GatedGraphTransformerConfig,
+    gated_graph_transformer_init,
+)
 from ruvector_tpu_torch.models import RuvectorNetConfig, ruvector_net_init
 from ruvector_tpu_torch.nn.ruvector_layer import RuvectorLayerConfig, ruvector_layer_init
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
     block_dense_layer_fused,
 )
+from ruvector_tpu_torch.ops.kernels.gated_block_attn import block_gate_signature_ln_x, pack_keep
+from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
+    gated_block_layer,
+    gated_block_layer_with_sig,
+)
+from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_from_x
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
 
 REPO = Path(__file__).resolve().parents[1]
@@ -60,6 +70,8 @@ _ENTRY_POINTS = {
     "params_from_numpy": lambda: params_from_numpy({"w": np.zeros(3, np.float32)}),
     "from_lists": lambda: NeighborGraph.from_lists([[1], [0]]),
     "build_knn_graph": lambda: build_knn_graph(np.eye(4, dtype=np.float32), k=2),
+    "gated_graph_transformer_init": lambda: gated_graph_transformer_init(
+        0, GatedGraphTransformerConfig(dim=8, num_heads=2, num_layers=1)),
     "build_block_dense": lambda: build_block_dense(
         np.zeros((4, 1), np.int32), np.ones((4, 1), np.float32),
         np.ones((4, 1), np.float32), block=4),
@@ -106,15 +118,43 @@ def _k1_inputs(device):
     return L, msg, wd, folded
 
 
+def _gated_inputs(device):
+    """K4a/K4b/K6c/K7 inputs: 2 partitions of 32 rows, D=32, 2 heads."""
+    from ruvector_tpu_torch.ops.kernels.gated_block_layer import _folded_shapes
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 32, 32, generator=g)
+    pad = torch.ones(2, 32)
+    keep = pack_keep(torch.rand(2, 32, 32, generator=g) > 0.5)
+    wd = torch.rand(2, 32, 32, generator=g)
+    A = 0.1 * torch.randn(32, 32, generator=g)
+    ln = (torch.ones(32), torch.zeros(32))
+    folded = {k: 0.1 * torch.randn(s, generator=g) for k, s in _folded_shapes(2, 32, 2).items()}
+    return (x.to(device), pad.to(device), A.to(device), tuple(v.to(device) for v in ln),
+            keep.to(device), wd.to(device), {k: v.to(device) for k, v in folded.items()})
+
+
 def _run(kernel, device):
     if kernel == "fused_neighbor_mix":
         return fused_neighbor_mix(*_k3_inputs(device), heads=2, scale=0.5)
     if kernel == "block_dense_attention":
         return block_dense_attention(*_k2_inputs(device), scale=0.5)
-    return block_dense_layer_fused(*_k1_inputs(device), dropout=0.0, eps=1e-5)
+    if kernel == "block_dense_layer_fused":
+        return block_dense_layer_fused(*_k1_inputs(device), dropout=0.0, eps=1e-5)
+    x, pad, A, ln, keep, wd, folded = _gated_inputs(device)
+    if kernel == "gated_block_layer":
+        return gated_block_layer(x, keep, pad, wd, folded, compute_bf16=False)
+    if kernel == "gated_block_layer_with_sig":
+        return gated_block_layer_with_sig(x, keep, pad, wd, folded, A, *ln,
+                                          compute_bf16=False, sig_eps=0.01)[0]
+    if kernel == "block_gate_signature_ln_x":
+        return block_gate_signature_ln_x(x, pad, A, *ln, eps=0.01, compute_bf16=False)[0]
+    return mincut_gate_block_from_x(x, pad, A, lam=0.5, eps=0.01, ln=ln)[1]
 
 
-_KERNELS = ["fused_neighbor_mix", "block_dense_attention", "block_dense_layer_fused"]
+_KERNELS = ["fused_neighbor_mix", "block_dense_attention", "block_dense_layer_fused",
+            "gated_block_layer", "gated_block_layer_with_sig", "block_gate_signature_ln_x",
+            "mincut_gate_block_from_x"]
 
 
 @pytest.mark.parametrize("kernel", _KERNELS)

@@ -11,9 +11,20 @@ another order; bf16 5e-2, the kernels round softmax weights against a
 running max where the plain versions use the row max.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+from ruvector_tpu_torch.graph import build_block_dense
+from ruvector_tpu_torch.graph_transformer import (
+    GatedGraphTransformerConfig,
+    gate_state_init,
+    gated_graph_transformer_apply_with_masks,
+    gated_graph_transformer_init,
+    gated_graph_transformer_step,
+)
 from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     _folded_shapes,
@@ -21,6 +32,22 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention_reference,
     block_dense_layer_fused,
     block_dense_layer_fused_reference,
+)
+from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
+    block_gate_signature_ln_x,
+    block_gate_signature_ln_x_reference,
+    pack_keep,
+)
+from ruvector_tpu_torch.ops.kernels.gated_block_layer import _folded_shapes as _gated_folded_shapes
+from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
+    gated_block_layer,
+    gated_block_layer_reference,
+    gated_block_layer_with_sig,
+)
+from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (
+    isolated_sink,
+    mincut_gate_block_from_x,
+    mincut_gate_block_from_x_reference,
 )
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import (
     fused_neighbor_mix,
@@ -110,3 +137,130 @@ def test_wrappers_raise_on_unsupported_input(card):
     with pytest.raises(ValueError, match="float32"):
         block_dense_attention(L, u, sb, wd.half(), scale=0.25)
     assert launch_counts()["block_dense_attention"] == 0
+    x, pad, A, ln, _, _ = _gated_inputs(card, torch.float32, b=48)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        mincut_gate_block_from_x(x, pad, A, lam=0.5, eps=0.01, ln=ln)
+    assert launch_counts()["mincut_gate_block_from_x"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the gated graph transformer's kernels (K4a, K4b, K6c, K7)
+# ---------------------------------------------------------------------------
+
+def _gated_inputs(dev, xdt, nb=3, b=256, d=128, h=4, fm=4, seed=0):
+    """A short tail block (pad rows), a sparse keep mask with a row that
+    keeps nothing, normalized block-local edge weights, and folded layer
+    weights at the scale of an initialised model."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(nb, b, d, generator=g)
+    pad = torch.ones(nb, b)
+    pad[-1, b - b // 3:] = 0.0
+    keep = torch.rand(nb, b, b, generator=g) < 0.3
+    keep[0, 5] = False
+    wd = torch.rand(nb, b, b, generator=g) * (torch.rand(nb, b, b, generator=g) < 0.06)
+    wd = wd / wd.sum(-1, keepdim=True).clamp(min=1e-10)
+    A = torch.randn(d, d, generator=g) * (0.3 / d ** 0.5)
+    ln = (1.0 + 0.1 * torch.randn(d, generator=g), 0.1 * torch.randn(d, generator=g))
+    folded = {}
+    for key, shape in _gated_folded_shapes(h, d, fm).items():
+        if shape[0] == 1:      # LayerNorm rows (gamma near 1) and biases
+            base = 1.0 if key.endswith("_g") else 0.0
+            folded[key] = base + 0.1 * torch.randn(shape, generator=g)
+        else:                  # [in, out]; A_h at the 1/D scale of Wq_h Wk_h^T / sqrt(dh)
+            std = 1.0 / d if key == "A_cat" else shape[0] ** -0.5
+            folded[key] = std * torch.randn(shape, generator=g)
+    x, pad, A = x.to(dev, xdt), pad.to(dev), A.to(dev)
+    return (x, pad, A, tuple(v.to(dev) for v in ln), (pack_keep(keep).to(dev), wd.to(dev)),
+            {k: v.to(dev) for k, v in folded.items()})
+
+
+@pytest.mark.parametrize("compute_bf16", [False, True])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_block_gate_signature_ln_x_kernel(card, xdt, compute_bf16):
+    x, pad, A, (gm, bt), _, _ = _gated_inputs(card, xdt)
+    rsum, rcnt = block_gate_signature_ln_x(x, pad, A, gm, bt, eps=0.01,
+                                           compute_bf16=compute_bf16)
+    want_s, want_c = block_gate_signature_ln_x_reference(x, pad, A, gm, bt, eps=0.01,
+                                                         compute_bf16=compute_bf16)
+    torch.cuda.synchronize()
+    assert launch_counts()["block_gate_signature_ln_x"] == 1
+    # the plain LayerNorm is the kernel's step for step and both sum the
+    # logits' products in float64, so every count is equal
+    assert torch.equal(rcnt, want_c)
+    torch.testing.assert_close(rsum, want_s, rtol=1e-6, atol=0.0)
+    assert float(rcnt[pad == 0].sum()) == 0.0
+
+
+@pytest.mark.parametrize("compute_bf16", [False, True])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_gated_block_layer_kernels(card, xdt, compute_bf16):
+    x, pad, A, (gm, bt), (keep, wd), folded = _gated_inputs(card, xdt)
+    wd = wd.to(torch.bfloat16) if compute_bf16 else wd
+    out = gated_block_layer(x, keep, pad, wd, folded, compute_bf16=compute_bf16)
+    want = gated_block_layer_reference(x, keep, pad, wd, folded, compute_bf16=compute_bf16)
+    assert out.dtype == xdt and torch.isfinite(out.float()).all()
+    # bf16: an output rounds to bf16 (one step is 2^-8 relative), and an
+    # operand rounded to bf16 may round the other way after float32 sums
+    # taken in another order
+    bf16 = torch.bfloat16 in (xdt, wd.dtype)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[torch.bfloat16 if bf16 else
+                                                                  torch.float32],
+                               rtol=1e-2 if bf16 else 0.0)
+    out2, rsum, rcnt = gated_block_layer_with_sig(x, keep, pad, wd, folded, A, gm, bt,
+                                                  compute_bf16=compute_bf16, sig_eps=0.01)
+    # one code path: K4b's output is K4a's bit for bit, and its signature
+    # is K6c's on the written output bit for bit
+    assert torch.equal(out2, out)
+    rs6, rc6 = block_gate_signature_ln_x(out, pad, A, gm, bt, eps=0.01,
+                                         compute_bf16=compute_bf16)
+    assert torch.equal(rsum, rs6) and torch.equal(rcnt, rc6)
+    assert launch_counts()["gated_block_layer"] == 1
+    assert launch_counts()["gated_block_layer_with_sig"] == 1
+
+
+@pytest.mark.parametrize("b", [64, 256])
+@pytest.mark.parametrize("compute_bf16", [False, True])
+def test_mincut_gate_block_kernel(card, b, compute_bf16):
+    x, pad, A, ln, _, _ = _gated_inputs(card, torch.float32, nb=6, b=b)
+    eye = torch.eye(x.shape[-1], device=card) * 0.1
+    x[:2] = isolated_sink(x[:2], 0.1)
+    pad[:2] = 1.0
+    for A_k, ln_k in ((A, ln), (eye, None)):
+        kp, stats = mincut_gate_block_from_x(x, pad, A_k, lam=0.5, eps=0.01, ln=ln_k,
+                                             compute_bf16=compute_bf16)
+        want_kp, want_stats = mincut_gate_block_from_x_reference(
+            x, pad, A_k, lam=0.5, eps=0.01, ln=ln_k, compute_bf16=compute_bf16)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, want_kp)
+        torch.testing.assert_close(stats[:, 2], want_stats[:, 2], rtol=0, atol=0)
+        torch.testing.assert_close(stats[:, 0], want_stats[:, 0], rtol=2e-3, atol=1e-4)
+    assert float(stats[:2, 2, 0].min()) == 1.0      # the eye case applies its cuts
+    assert launch_counts()["mincut_gate_block_from_x"] == 2
+
+
+def test_auto_route_takes_the_kernels_at_d64(card):
+    """Under "auto", CUDA tensors take the kernel route at any width the
+    kernels take: D=64 on a halo-free layout launches K7, K6c and K4a at
+    init and K4b on a step, and the layer matches the plain composition."""
+    rng = np.random.default_rng(3)
+    n, block, d = 512, 128, 64
+    base = (np.arange(n)[:, None] // block) * block
+    idx = (base + rng.integers(0, block, (n, 8))).astype(np.int32)
+    ew = rng.uniform(0.1, 1.0, (n, 8)).astype(np.float32)
+    bdg = build_block_dense(idx, np.ones((n, 8), np.float32), ew, block=block, device=card)
+    assert bdg.table == bdg.block
+    cfg = GatedGraphTransformerConfig(dim=d, num_heads=4, num_layers=2)
+    assert cfg.fused_gate_attn == "auto"
+    params = gated_graph_transformer_init(0, cfg, device=card)
+    fpad = bdg.pad_features(torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card))
+    with torch.no_grad():
+        state = gate_state_init(params, cfg, fpad, bdg)
+        counts = launch_counts()
+        assert counts["mincut_gate_block_from_x"] == 2
+        assert counts["block_gate_signature_ln_x"] == 2
+        assert counts["gated_block_layer"] == 2
+        out, _, nres = gated_graph_transformer_step(params, cfg, fpad, bdg, state)
+        assert nres == 0 and launch_counts()["gated_block_layer_with_sig"] == 1
+        plain = gated_graph_transformer_apply_with_masks(
+            params, dataclasses.replace(cfg, fused_gate_attn="never"), fpad, bdg, state["keep"])
+    torch.testing.assert_close(out, plain, atol=TOL[torch.float32], rtol=0.0)
