@@ -2,8 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (ruvector_tpu_torch).
 
 Builds the CUDA kernels from `ruvector_tpu_torch/csrc/`, holds each kernel
-against its plain PyTorch version, then drives the port's two paths on
-one card:
+against its plain PyTorch version, then drives the port's paths on one
+card:
 
   * the RuvectorLayer at the bench's headline width: a clustered
     100k-node, 128-d feature set (bench.py's data, seed 0), its k=16
@@ -19,6 +19,16 @@ one card:
     random weights from seed 0. gate_state_init solves every gate; then
     steady steps (the same input: every gate reused) and drift steps
     (features moved by 0.1 N(0,1) each step: budget-capped re-solves).
+  * config 5's train step on the same graph, weights and masks
+    (config5_r03.py:204-226: the loss against zero targets under the
+    state's masks, its gradient, then w - 1e-3 g; remat, bf16 compute),
+    with the kernel route's gradients held against the plain route's on
+    the first 244 partitions.
+  * config 5's layers on a layout with a halo (120,000 nodes, 240-node
+    partitions, B % 32 != 0): init, steady and drift steps and one train
+    step, against the plain route.
+  * the RuvectorLayer's contrastive train step (Adam) on the 100k-node
+    graph.
 
 Prints one line per phase, the card's name and power limit, a `kernels`
 JSON line (launches on the main paths, error against the plain version,
@@ -74,11 +84,23 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (  # noqa: E402
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (  # noqa: E402
     as_cdt,
+    block_gate_signature,
     block_gate_signature_ln_x,
     block_gate_signature_ln_x_reference,
+    block_gate_signature_reference,
+    block_gate_signature_x,
+    block_gate_signature_x_reference,
+    fold_gated_attention_params,
+    gated_block_attention_bwd,
+    gated_block_attention_bwd_partials,
+    gated_block_attention_bwd_reference,
+    gated_block_attention_fwd,
+    gated_block_attention_fwd_reference,
+    head_concat,
     layer_norm_rows,
     matmul_f64,
     pack_keep,
+    reduce_partials,
     unpack_keep,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import (  # noqa: E402
@@ -100,6 +122,12 @@ from ruvector_tpu_torch.ops.kernels.neighbor_mix import (  # noqa: E402
 )
 from ruvector_tpu_torch.ops.segment import normalized_weights  # noqa: E402
 from ruvector_tpu_torch.parallel.ordering import graph_grow_blocks  # noqa: E402
+from ruvector_tpu_torch.training import (  # noqa: E402
+    TrainConfig,
+    adam,
+    make_train_step,
+    sample_negatives,
+)
 
 DEV = torch.device("cuda")
 N_NODES = 100_000   # bench.py's headline graph
@@ -129,7 +157,17 @@ SOURCES = {
                                   "ruvector_tpu/ops/pallas/gated_block_attn.py:487"),
     "mincut_gate_block_from_x": ("ruvector_tpu_torch/csrc/mincut_gate_block.cu",
                                  "ruvector_tpu/ops/pallas/mincut_gate_block.py:234"),
+    "gated_block_attention_fwd": ("ruvector_tpu_torch/csrc/gated_block_mha.cu",
+                                  "ruvector_tpu/ops/pallas/gated_block_attn.py:119"),
+    "gated_block_attention_bwd": ("ruvector_tpu_torch/csrc/gated_block_mha.cu",
+                                  "ruvector_tpu/ops/pallas/gated_block_attn.py:239"),
+    "block_gate_signature_x": ("ruvector_tpu_torch/csrc/gated_block_attn.cu",
+                               "ruvector_tpu/ops/pallas/gated_block_attn.py:423"),
+    "block_gate_signature": ("ruvector_tpu_torch/csrc/gated_block_attn.cu",
+                             "ruvector_tpu/ops/pallas/gated_block_attn.py:362"),
 }
+# kernels that no path of the JAX package reaches (shown, with launches 0)
+OFF_PATH = {"block_gate_signature": "no caller in the JAX package (gated.py:291 is unused)"}
 # config 5 (benchmarks/config5_r03.py, CONFIG5_BENCH_r05.json): clusters of
 # 128 (benchmarks/scale_sweep_r02.py), 256-node partitions, k=16
 C5_NODES, C5_CLUSTER, C5_BLOCK, C5_K = 999_936, 128, 256, 16
@@ -143,6 +181,15 @@ C5_DRIFT = 0.1      # drift step: features += C5_DRIFT * N(0, 1)
 # off by up to 2^-9 relative, and a layer chains about seven products
 # into outputs of order 1-5, so a few 1e-2 at most and 1e-3 on average
 C5_ROUTE_TOL = (5e-2, 5e-3)
+# config 5's train step (benchmarks/config5_r03.py:204-226): timed steps,
+# the SGD rate, and the partitions of the gradient check (the budget's
+# count; the layout is halo-free, so a slice of partitions is its own graph)
+C5_TRAIN_STEPS, C5_TRAIN_LR, C5_GRAD_PARTS = 4, 1e-3, 244
+# config 5's layers on a layout with a halo: clusters of 120, two per
+# 240-node partition (B % 32 = 16), k=16 of which 14 within the cluster
+H_NODES, H_CLUSTER, H_BLOCK, H_K, H_K_IN = 120_000, 120, 240, 16, 14
+H_STEPS = 2         # steady steps, then as many drift steps
+CONTRASTIVE_STEPS = 3
 
 
 def say(phase: str, **fields) -> None:
@@ -171,6 +218,54 @@ def agree(name: str, got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
 def _agree_as(dtype: torch.dtype):
     """A report row's check: agree() with the tolerance of `dtype`."""
     return lambda name, got, want: agree(name, got, want, dtype)
+
+
+def agree_scaled(name: str, got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
+                 tol: tuple[float, float] | None = None) -> float:
+    """agree() on errors relative to want's largest magnitude (for
+    gradients, whose scale varies by tensor): max and mean of |got - want|
+    / max|want| within TOL[dtype] (or `tol`). Returns the max abs error."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} "
+                             f"or non-finite output")
+    scale = max(float(want.abs().max()), 1e-30)
+    err = (got - want).abs()
+    rel_max, rel_mean = float(err.max()) / scale, float(err.mean()) / scale
+    tol_max, tol_mean = tol or TOL[dtype]
+    ok = rel_max <= tol_max and rel_mean <= tol_mean
+    say("agree", name=name, dtype=str(dtype).replace("torch.", ""), scale=scale,
+        max_rel_err=rel_max, mean_rel_err=rel_mean, tol_max=tol_max, tol_mean=tol_mean, ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: disagrees with its reference")
+    return float(err.max())
+
+
+def agree_grads(name: str, got, want, dtype: torch.dtype) -> float:
+    """K5b's (dx, dA_cat, dWvo_cat) against its plain version, each
+    relative to its own scale."""
+    return max(agree_scaled(f"{name} {part}", g, w, dtype)
+               for part, g, w in zip(("dx", "dA_cat", "dWvo_cat"), got, want))
+
+
+def agree_rows(name: str, got, want) -> float:
+    """Signature rows (rsum, rcnt) against the plain version's: the logits'
+    products are summed in float64 on both sides (exact for bf16 products,
+    within 2^-53 for f32 ones, rounded once), so the counts must be equal
+    and the row sums (float64, rounded once) within 1e-6 relative. Returns
+    the max abs error of rsum."""
+    (rsum, rcnt), (wsum, wcnt) = got, want
+    if rsum.shape != wsum.shape or not bool(torch.isfinite(rsum).all()):
+        raise AssertionError(f"{name}: wrong shape or non-finite output")
+    counts_equal = torch.equal(rcnt, wcnt)
+    sums_close = bool(torch.allclose(rsum, wsum, rtol=1e-6, atol=0.0))
+    say("agree", name=name, rows=rcnt.numel(), positive=int(wcnt.sum()),
+        counts_equal=counts_equal, count_diffs=float((rcnt - wcnt).abs().sum()),
+        sums_equal=torch.equal(rsum, wsum), sums_close=sums_close, sums_rtol=1e-6,
+        ok=counts_equal and sums_close)
+    if not (counts_equal and sums_close):
+        raise AssertionError(f"{name}: disagrees with its reference")
+    return float((rsum - wsum).abs().max())
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -309,24 +404,10 @@ def counted(kernel_names, fn):
 # ---------------------------------------------------------------------------
 
 def agree_signature(name: str, got, x, pad, sig, compute_bf16: bool, eps: float) -> float:
-    """Gate-signature rows (rsum, rcnt) of x against the plain version on
-    x. The kernel's LayerNorm is the plain one step for step, and the
-    logits' sums are float64 in both (exact for bf16 products), so the
-    counts must be equal; the row sums (float64, rounded once) within
-    1e-6 relative. Returns the max abs error of rsum."""
-    rsum, rcnt = got
-    wsum, wcnt = block_gate_signature_ln_x_reference(x, pad, *sig, eps=eps,
-                                                     compute_bf16=compute_bf16)
-    if rsum.shape != wsum.shape or not bool(torch.isfinite(rsum).all()):
-        raise AssertionError(f"{name}: wrong shape or non-finite output")
-    counts_equal = torch.equal(rcnt, wcnt)
-    sums_close = bool(torch.allclose(rsum, wsum, rtol=1e-6, atol=0.0))
-    say("agree", name=name, rows=rcnt.numel(), counts_equal=counts_equal,
-        count_diffs=float((rcnt - wcnt).abs().sum()), sums_equal=torch.equal(rsum, wsum),
-        sums_close=sums_close, sums_rtol=1e-6, ok=counts_equal and sums_close)
-    if not (counts_equal and sums_close):
-        raise AssertionError(f"{name}: disagrees with its reference")
-    return float((rsum - wsum).abs().max())
+    """K6c's rows (rsum, rcnt) of x against the plain version on x (the
+    kernel's LayerNorm is the plain one step for step): agree_rows."""
+    return agree_rows(name, got, block_gate_signature_ln_x_reference(
+        x, pad, *sig, eps=eps, compute_bf16=compute_bf16))
 
 
 def agree_layer_with_sig(name: str, got, want, pad, sig, dtype: torch.dtype,
@@ -459,6 +540,62 @@ def phase_gated_parity(gparams, gcfg) -> None:
     say("gate_cuts", partitions=4, applied=applied)
     if applied != 4:
         raise AssertionError("the isolated-sink partitions must all apply their cut")
+    torch.cuda.synchronize()
+
+
+def phase_train_parity(gparams, gcfg) -> None:
+    """K5a, K5b, K6a and K6b against their plain versions at config 5's
+    widths (D=128, 4 heads, B=256), with a short tail block (pad rows), a
+    sparse keep mask with a row that keeps nothing, in f32 and bf16
+    compute; and the control: K5b's dA reduced without partition 0's
+    partial must fail the dA check."""
+    gen = torch.Generator().manual_seed(2)
+    nb, b, d = 3, C5_BLOCK, gcfg.dim
+    h = torch.randn(nb, b, d, generator=gen).to(DEV)
+    g = torch.randn(nb, b, d, generator=gen).to(DEV)
+    pad = torch.ones(nb, b)
+    pad[-1, 200:] = 0.0
+    pad = pad.to(DEV)
+    keep = torch.rand(nb, b, b, generator=gen) < 0.3
+    keep[0, 5] = False
+    keep = pack_keep(keep).to(DEV)
+    p = gparams[0]
+    A, Wvo = fold_gated_attention_params(p, gcfg)
+    A_cat, Wvo_cat = head_concat(A), head_concat(Wvo)
+    A_sig = gated._fold_sig_params(p, gcfg)
+    scale = 1.0 / (gcfg.head_dim ** 0.5) / gcfg.num_heads
+    for cbf in (False, True):
+        cdt, tag = (torch.bfloat16, "bf16") if cbf else (torch.float32, "f32")
+        args = (h, keep, pad, A_cat, Wvo_cat)
+        agree(f"K5a gated_block_attention_fwd B={b} {tag}",
+              gated_block_attention_fwd(*args, compute_bf16=cbf),
+              gated_block_attention_fwd_reference(*args, compute_bf16=cbf), cdt)
+        agree_grads(f"K5b gated_block_attention_bwd B={b} {tag}",
+                    gated_block_attention_bwd(*args, g, compute_bf16=cbf),
+                    gated_block_attention_bwd_reference(*args, g, compute_bf16=cbf), cdt)
+        agree_rows(f"K6b block_gate_signature_x {tag}",
+                   block_gate_signature_x(h, pad, A_sig, eps=gcfg.eps, compute_bf16=cbf),
+                   block_gate_signature_x_reference(h, pad, A_sig, eps=gcfg.eps,
+                                                    compute_bf16=cbf))
+        q, k = gated._qk_proj(h, p["wq"], p["wk"], dataclasses.replace(
+            gcfg, compute_dtype="bfloat16" if cbf else "float32"))
+        agree_rows(f"K6a block_gate_signature q/k {tag}",
+                   block_gate_signature(q, k, pad, eps=gcfg.eps, scale=scale),
+                   block_gate_signature_reference(q, k, pad, eps=gcfg.eps, scale=scale))
+    # control: one partition's dA partial left out of the reduction (with
+    # nB = 3 partitions each block of the grid holds exactly one)
+    dx, dA_parts, _ = gated_block_attention_bwd_partials(h, keep, pad, A_cat, Wvo_cat, g,
+                                                         compute_bf16=False)
+    if dA_parts.shape[0] != nb:
+        raise AssertionError(f"K5b's grid holds {dA_parts.shape[0]} partials, not one per "
+                             f"partition ({nb})")
+    want_dA = gated_block_attention_bwd_reference(h, keep, pad, A_cat, Wvo_cat, g,
+                                                  compute_bf16=False)[1]
+    agree_scaled("K5b dA from its partials, all partitions", reduce_partials(dA_parts), want_dA,
+                 torch.float32)
+    expect_rejected("K5b dA without partition 0's partial", lambda: agree_scaled(
+        "control: K5b dA without partition 0's partial",
+        reduce_partials(dA_parts[1:].contiguous()), want_dA, torch.float32))
     torch.cuda.synchronize()
 
 
@@ -598,7 +735,8 @@ def phase_config5(gparams, gcfg, d: int) -> dict:
         drift=_nonzero(drift_counts))
     launches = {name: steady_counts[name] + drift_counts[name] for name in C5_KERNELS}
     sel = torch.randperm(nb, generator=noise, device=DEV)[:budget]
-    return dict(bdg=bdg, x0=x0, keep0=keep0, x_sel=f_drift.reshape(nb, b, d)[sel].contiguous(),
+    return dict(bdg=bdg, x0=x0, keep0=keep0, keep=state["keep"],
+                x_sel=f_drift.reshape(nb, b, d)[sel].contiguous(),
                 pad_sel=bdg.node_pad[sel].contiguous(), launches=launches)
 
 
@@ -676,6 +814,300 @@ def config5_report(c5: dict, gparams, gcfg) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: config 5's train step, the halo layout, the contrastive step
+# ---------------------------------------------------------------------------
+
+def _leaves(params):
+    """The trainable tensors of the gated model, in a fixed order."""
+    return [t for layer in params for t in gated._flatten(layer)[1]]
+
+
+def _rebuild(params, leaves):
+    it = iter(leaves)
+    out = []
+    for layer in params:
+        keys, vals = gated._flatten(layer)
+        out.append(gated._unflatten(keys, [next(it) for _ in vals]))
+    return out
+
+
+def _loss_and_grads(params, cfg, fpad, bdg, keep):
+    """config5_r03's loss (zero targets, the state's masks) and its
+    gradient, for every leaf of params."""
+    leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
+    loss = gated.gated_graph_transformer_loss_with_masks(
+        _rebuild(params, leaves), cfg, fpad, bdg, keep, torch.zeros_like(fpad))
+    return loss.detach(), leaves, torch.autograd.grad(loss, leaves)
+
+
+def _grads_agree(name, params, cfg, fpad, bdg, keep) -> None:
+    """The kernel route's parameter gradients against the plain route's,
+    each leaf relative to its own scale, at C5_ROUTE_TOL."""
+    _, _, kernel = _loss_and_grads(params, cfg, fpad, bdg, keep)
+    _, _, plain = _loss_and_grads(params, dataclasses.replace(cfg, fused_gate_attn="never"),
+                                  fpad, bdg, keep)
+    names = [f"{li}/{'/'.join(k)}" for li, layer in enumerate(params)
+             for k in gated._flatten(layer)[0]]
+    for leaf, kg, pg in zip(names, kernel, plain):
+        agree_scaled(f"{name} grad {leaf}", kg, pg, torch.bfloat16, tol=C5_ROUTE_TOL)
+
+
+def first_partitions(bdg, k: int):
+    """The first k partitions of a halo-free layout as their own graph."""
+    if bdg.table != bdg.block:
+        raise AssertionError("a slice of partitions is its own graph only without a halo")
+    b = bdg.block
+    return dataclasses.replace(bdg, local_ids=bdg.local_ids[:k], wdense=bdg.wdense[:k],
+                               degrees=bdg.degrees[:k], node_pad=bdg.node_pad[:k],
+                               node_pos=bdg.node_pos[bdg.node_pos < k * b],
+                               n=int(bdg.node_pad[:k].sum()), log_mult=None)
+
+
+def phase_config5_train(gparams, gcfg, c5: dict) -> dict:
+    """Config 5's train step at full width on the serving phase's graph,
+    weights and init masks: C5_TRAIN_STEPS steps of loss, gradient and
+    w - lr g (remat on, bf16 compute on f32 features). Each step must
+    launch K4a once per layer (forward) and K5a and K5b once per layer
+    (the fused layer's backward recompute), and no other kernel. Then the
+    kernel route's gradients against the plain route's on the first
+    C5_GRAD_PARTS partitions."""
+    bdg, keep = c5["bdg"], c5["keep"]
+    nb, b, d = c5["x0"].shape
+    fpad = c5["x0"].reshape(nb * b, d)
+    cfg = dataclasses.replace(gcfg, remat=True)
+    layers = len(gparams)
+
+    def train_step(params):
+        loss, leaves, grads = _loss_and_grads(params, cfg, fpad, bdg, keep)
+        with torch.no_grad():
+            return _rebuild(params, [w - C5_TRAIN_LR * g for w, g in zip(leaves, grads)]), loss
+
+    def run():
+        params, times, losses = gparams, [], []
+        for _ in range(C5_TRAIN_STEPS):
+            (params, loss), ms = _synced_ms(lambda: train_step(params))
+            times.append(ms)
+            losses.append(float(loss))
+        return params, times, losses
+
+    torch.cuda.reset_peak_memory_stats()
+    (params, times, losses), counts = counted(
+        ["gated_block_layer", "gated_block_attention_fwd", "gated_block_attention_bwd"], run)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v / C5_TRAIN_STEPS for k, v in counts.items() if v}
+    want = {k: layers for k in ("gated_block_layer", "gated_block_attention_fwd",
+                                "gated_block_attention_bwd")}
+    if per_step != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"train step launches {per_step} (must be {want}) or a "
+                             f"non-finite loss {losses}")
+    moved = max(float((a - w).abs().max()) for a, w in zip(_leaves(params), _leaves(gparams)))
+    if not moved > 0:
+        raise AssertionError("the train steps did not move the parameters")
+    sub = first_partitions(bdg, C5_GRAD_PARTS)
+    _grads_agree(f"config5 train, first {C5_GRAD_PARTS} partitions: kernel vs plain route",
+                 gparams, cfg, c5["x0"][:C5_GRAD_PARTS].reshape(-1, d), sub,
+                 keep[:, :C5_GRAD_PARTS].contiguous())
+    step_ms = statistics.median(times)
+    edges = C5_NODES * C5_K * layers
+    say("config5_train", nodes=nb * b, nB=nb, B=b, d=d, layers=layers, remat=True, lr=C5_TRAIN_LR,
+        train_step_ms=step_ms, steps_ms=[round(t, 3) for t in times], losses=losses,
+        edges_per_s=edges / (step_ms * 1e-3), peak_mem_gb=round(peak_gb, 2),
+        launches_per_step=per_step, grad_check_partitions=C5_GRAD_PARTS)
+    return {k: counts[k] for k in want}
+
+
+def halo_graph(n: int, d: int, seed: int = 1):
+    """Clusters of H_CLUSTER points (centres N(0, 1), std 0.25, contiguous,
+    made on the card); each node's H_K_IN nearest within its cluster (self
+    excluded) and H_K - H_K_IN random nodes of other clusters, weights
+    1/(1 + dist). Returns (feats, idx int32, ew) on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    nc, c = n // H_CLUSTER, H_CLUSTER
+    pts = (torch.randn(nc, 1, d, generator=gen, device=DEV)
+           + 0.25 * torch.randn(nc, c, d, generator=gen, device=DEV))
+    sq = (pts * pts).sum(-1)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(pts, pts.transpose(1, 2))
+    neg, nn_idx = torch.topk(-(d2 + 1e30 * torch.eye(c, device=DEV)), H_K_IN, dim=-1)
+    base = torch.arange(nc, device=DEV)[:, None, None] * c
+    inner = (nn_idx + base).reshape(n, H_K_IN)
+    dist_in = torch.sqrt(torch.clamp(-neg, min=0.0)).reshape(n, H_K_IN)
+    own = torch.arange(n, device=DEV)[:, None] // c
+    other = (own + torch.randint(1, nc, (n, H_K - H_K_IN), generator=gen, device=DEV)) % nc
+    outer = other * c + torch.randint(0, c, (n, H_K - H_K_IN), generator=gen, device=DEV)
+    feats = pts.reshape(n, d)
+    dist_out = torch.linalg.vector_norm(feats[outer] - feats[:, None, :], dim=-1)
+    idx = torch.cat([inner, outer], dim=1).int()
+    ew = 1.0 / (1.0 + torch.cat([dist_in, dist_out], dim=1))
+    return feats, idx, ew
+
+
+def phase_config5_halo(gparams, gcfg) -> dict:
+    """Config 5's layers on a layout with a halo and B % 32 != 0: the
+    signature is K6b and the gate the plain batched one (the JAX
+    package's choice at B % 32 != 0), each layer LN1, K5a and the plain
+    mix and FFN. gate_state_init, H_STEPS steady and H_STEPS drift steps,
+    one train step; the steady step's output and the train step's
+    gradients against the plain route."""
+    d = gcfg.dim
+    t0 = time.perf_counter()
+    feats, idx, ew = halo_graph(H_NODES, d)
+    bdg = build_block_dense(idx.cpu().numpy(), np.ones((H_NODES, H_K), np.float32),
+                            ew.cpu().numpy(), block=H_BLOCK, device=DEV)
+    layout_s = time.perf_counter() - t0
+    nb, b = bdg.n_blocks, bdg.block
+    if bdg.table <= b or b % 32 == 0:
+        raise AssertionError(f"the halo layout has no halo or B % 32 == 0: B={b} T={bdg.table}")
+    budget = max(1, int(nb * gcfg.max_resolve_frac))
+    fpad = bdg.pad_features(feats)
+    step = gated.gated_graph_transformer_step
+    step_kernels = ["block_gate_signature_x", "gated_block_attention_fwd"]
+    off_route = ("gated_block_layer", "gated_block_layer_with_sig", "block_gate_signature_ln_x",
+                 "mincut_gate_block_from_x")
+    with torch.no_grad():
+        (state, init_ms), init_counts = counted(
+            step_kernels, lambda: _synced_ms(lambda: gated.gate_state_init(gparams, gcfg, fpad,
+                                                                           bdg)))
+
+        def steps(inputs):
+            st, out, times, res = state, None, [], []
+            for f in inputs:
+                (out, st, nres), ms = _synced_ms(lambda: step(gparams, gcfg, f, bdg, st))
+                times.append(ms)
+                res.append(nres)
+            return out, times, res
+
+        noise = torch.Generator(device=DEV).manual_seed(8)
+        padcol = bdg.node_pad.reshape(-1, 1)
+        drifted = [fpad + C5_DRIFT * (i + 1) * torch.randn(fpad.shape, generator=noise,
+                                                           device=DEV) * padcol
+                   for i in range(H_STEPS)]
+        (out, steady_ms, steady_res), steady_counts = counted(
+            step_kernels, lambda: steps([fpad] * H_STEPS))
+        (out_d, drift_ms, drift_res), drift_counts = counted(step_kernels,
+                                                             lambda: steps(drifted))
+        if (any(steady_res) or not all(0 <= r <= 2 * budget for r in drift_res)
+                or sum(drift_res) < 1 or not bool(torch.isfinite(out_d).all())):
+            raise AssertionError(f"halo steps re-solved {steady_res} / {drift_res} partitions "
+                                 f"(must be 0 / at most {2 * budget}, some) or gave a "
+                                 "non-finite output")
+        out_plain, _, _ = step(gparams, dataclasses.replace(gcfg, fused_gate_attn="never"), fpad,
+                               bdg, state)
+        agree("config5 halo steady step: kernel route vs plain route", out, out_plain,
+              torch.bfloat16, tol=C5_ROUTE_TOL)
+    (loss, _, _), train_counts = counted(
+        ["gated_block_attention_fwd", "gated_block_attention_bwd"],
+        lambda: _loss_and_grads(gparams, gcfg, fpad, bdg, state["keep"]))
+    _, train_ms = _synced_ms(lambda: _loss_and_grads(gparams, gcfg, fpad, bdg, state["keep"]))
+    layers = len(gparams)
+    for what, counts in (("init", init_counts), ("steady", steady_counts),
+                         ("drift", drift_counts), ("train", train_counts)):
+        if any(counts[k] for k in off_route):
+            raise AssertionError(f"halo {what} launched a halo-free kernel: {_nonzero(counts)}")
+    if (train_counts["gated_block_attention_fwd"] != layers
+            or train_counts["gated_block_attention_bwd"] != layers):
+        raise AssertionError(f"halo train step launches {_nonzero(train_counts)}")
+    _grads_agree("config5 halo train: kernel vs plain route", gparams, gcfg, fpad, bdg,
+                 state["keep"])
+    say("config5_halo", nodes=H_NODES, nB=nb, B=b, T=bdg.table, k=H_K, k_within=H_K_IN,
+        layout_s=round(layout_s, 3), gate_init_ms=init_ms,
+        steady_ms=[round(t, 3) for t in steady_ms], drift_ms=[round(t, 3) for t in drift_ms],
+        resolved_per_drift_step=drift_res, budget=budget, train_step_ms=train_ms,
+        loss=float(loss))
+    say("config5_halo_launches", init=_nonzero(init_counts), steady=_nonzero(steady_counts),
+        drift=_nonzero(drift_counts), train=_nonzero(train_counts))
+    h = gated._ln(gparams[0]["ln1"], fpad.reshape(nb, b, d)).contiguous()
+    launches = {k: init_counts[k] + steady_counts[k] + drift_counts[k] + train_counts[k]
+                for k in ("block_gate_signature_x", "gated_block_attention_fwd",
+                          "gated_block_attention_bwd")}
+    return dict(h=h, pad=bdg.node_pad, launches=launches)
+
+
+def phase_contrastive(params, cfg, feats, graph) -> None:
+    """The RuvectorLayer's contrastive train step (TrainConfig defaults:
+    batch 256, 64 negatives, tau 0.07) with Adam (lr 1e-3) on the 100k-node
+    graph: anchors and negatives drawn on the host outside the timed
+    window; the losses must be finite and the parameters must move."""
+    tcfg = TrainConfig()
+    opt = adam(tcfg.learning_rate)
+    step = make_train_step(cfg, opt, tcfg)
+    gen = torch.Generator().manual_seed(0)
+    p, state, times, losses = params, opt.init(params), [], []
+    for _ in range(CONTRASTIVE_STEPS):
+        anchors = torch.randperm(graph.num_nodes, generator=gen)[:tcfg.batch_size].int()
+        negs = sample_negatives(gen, graph, anchors, tcfg.n_negatives)
+        (p, state, loss), ms = _synced_ms(lambda: step(p, state, feats, graph, anchors.to(DEV),
+                                                       negs.to(DEV)))
+        times.append(ms)
+        losses.append(float(loss))
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(_flat_dict(p), _flat_dict(params)))
+    if not all(np.isfinite(losses)) or not moved > 0:
+        raise AssertionError(f"contrastive step: losses {losses}, parameters moved {moved}")
+    say("contrastive", nodes=graph.num_nodes, batch=tcfg.batch_size,
+        negatives=tcfg.n_negatives, temperature=tcfg.temperature, lr=tcfg.learning_rate,
+        optimizer="adam", step_ms=statistics.median(times),
+        steps_ms=[round(t, 3) for t in times], losses=losses, max_param_move=moved)
+
+
+def _flat_dict(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _flat_dict(tree[k])]
+    return [tree]
+
+
+def train_report(c5: dict, halo: dict, gparams, gcfg) -> list:
+    """Report rows of the training kernels: K5a and K5b at the train
+    step's shapes (layer 0's normalized input, init masks, every
+    partition; a cotangent from a seed), K6b and K6a at the halo layout's
+    (layer 0's normalized stream; q and k its bf16 projections)."""
+    bdg, x0, keep0 = c5["bdg"], c5["x0"], c5["keep0"]
+    nb, b, d = x0.shape
+    hh = gcfg.num_heads
+    p = gparams[0]
+    h0 = gated._ln(p["ln1"], x0).contiguous()
+    pad = bdg.node_pad
+    A, Wvo = fold_gated_attention_params(p, gcfg)
+    A_cat, Wvo_cat = head_concat(A), head_concat(Wvo)
+    g = torch.randn(h0.shape, generator=torch.Generator(device=DEV).manual_seed(9), device=DEV)
+    n = nb * b
+    bf16, f32 = torch.bfloat16, torch.float32
+    args = (h0, keep0, pad, A_cat, Wvo_cat)
+    rows = [
+        ("gated_block_attention_fwd",
+         lambda: gated_block_attention_fwd(*args, compute_bf16=True),
+         lambda: gated_block_attention_fwd_reference(*args, compute_bf16=True),
+         _agree_as(bf16),
+         bound(nbytes(*args) + nbytes(h0), {bf16: 2 * n * hh * (2 * d + 2 * b) * d}), {}),
+        ("gated_block_attention_bwd",
+         lambda: gated_block_attention_bwd(*args, g, compute_bf16=True),
+         lambda: gated_block_attention_bwd_reference(*args, g, compute_bf16=True),
+         lambda name, got, want: agree_grads(name, got, want, bf16),
+         bound(nbytes(*args, g) + nbytes(h0, A_cat, Wvo_cat),
+               {bf16: 2 * n * hh * (2 * d + b) * d, f32: 2 * n * hh * (4 * d + 4 * b) * d}),
+         {})]
+    hx, hpad = halo["h"], halo["pad"]
+    hn, hb = hx.shape[0] * hx.shape[1], hx.shape[1]
+    A_sig = gated._fold_sig_params(p, gcfg)
+    q, k = gated._qk_proj(hx, p["wq"], p["wk"], gcfg)
+    scale = 1.0 / (gcfg.head_dim ** 0.5) / hh
+    sig_out = 2 * hn * 4
+    rows.append(("block_gate_signature_x",
+                 lambda: block_gate_signature_x(hx, hpad, A_sig, eps=gcfg.eps, compute_bf16=True),
+                 lambda: block_gate_signature_x_reference(hx, hpad, A_sig, eps=gcfg.eps,
+                                                          compute_bf16=True),
+                 agree_rows, bound(nbytes(hx, hpad, A_sig) + sig_out,
+                                   {bf16: 2 * hn * (hb + d) * d}),
+                 {"shape": f"halo layout: nB={hx.shape[0]}, B={hb}"}))
+    rows.append(("block_gate_signature",
+                 lambda: block_gate_signature(q, k, hpad, eps=gcfg.eps, scale=scale),
+                 lambda: block_gate_signature_reference(q, k, hpad, eps=gcfg.eps, scale=scale),
+                 agree_rows, bound(nbytes(q, k, hpad) + sig_out, {bf16: 2 * hn * hb * d}),
+                 {"shape": f"halo layout: nB={hx.shape[0]}, B={hb}, q/k bf16",
+                  "path": OFF_PATH["block_gate_signature"]}))
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -692,6 +1124,7 @@ def main() -> int:
         hysteresis_band=0.05, max_resolve_frac=1 / 16, compute_dtype="bfloat16")
     gparams = gated.gated_graph_transformer_init(0, gcfg, device=DEV)
     phase_gated_parity(gparams, gcfg)
+    phase_train_parity(gparams, gcfg)
 
     # --- main path: the bench's headline route ------------------------------
     t0 = time.perf_counter()
@@ -760,6 +1193,16 @@ def main() -> int:
         c5 = phase_config5(gparams, gcfg, d)
     launches.update(c5["launches"])
 
+    # --- training: config 5's train step, the halo layout, the contrastive step
+    train_launches = phase_config5_train(gparams, gcfg, c5)
+    c5_halo = phase_config5_halo(gparams, gcfg)
+    launches["gated_block_layer"] += train_launches["gated_block_layer"]
+    for name in ("gated_block_attention_fwd", "gated_block_attention_bwd",
+                 "block_gate_signature_x"):
+        launches[name] = train_launches.get(name, 0) + c5_halo["launches"][name]
+    launches["block_gate_signature"] = 0
+    phase_contrastive(params, cfg, feats, graph)
+
     # --- kernels at the main paths' shapes ------------------------------------
     report = []
     with torch.no_grad():
@@ -817,6 +1260,7 @@ def main() -> int:
                        bound(nbytes(*k3_args) + (heads + 1) * N_NODES * d * 4, k3_ops),
                        {}))
         report += config5_report(c5, gparams, gcfg)
+        report += train_report(c5, c5_halo, gparams, gcfg)
 
         lines = []
         for name, fn, ref, check, (bound_ms, bound_by), extra in report:
@@ -824,7 +1268,7 @@ def main() -> int:
             ms = time_ms(fn, iters=10)
             plain_ms = time_ms(ref, iters=2, warmup=1)
             source, replaces = SOURCES[name]
-            if launches[name] < 1:
+            if launches[name] < 1 and name not in OFF_PATH:
                 raise AssertionError(f"{name} was not launched on its path")
             lines.append({"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "launches": launches[name],

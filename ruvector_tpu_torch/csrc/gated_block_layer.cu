@@ -28,7 +28,7 @@
 // q_h = h A_h and y_h = h Wvo_h, the attention sum and one head's [B, B]
 // logits do not fit in 227 KB of shared memory at B=256, D=128, so they
 // live in the block's slice of a global scratch buffer (5 B D + B^2 + B
-// floats, about 0.9 MB, L2-resident while the block works on it); the
+// floats, about 0.9 MB; over the grid more than the 50 MB L2); the
 // weights stream from L2 through block_gemm's shared-memory tiles. The
 // FFN runs in D-wide chunks of its hidden layer, so the hidden never
 // exceeds [B, D]. Rounding follows the TPU kernel: every product takes
@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) layer_kernel(const LayerArgs a) {
   float* ATT = Y + bd;
   float* S = ATT + bd;
   float* INV = S + (size_t)b * b;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
 
   for (int k = blockIdx.x; k < a.nb; k += gridDim.x) {
     const XT* xk = static_cast<const XT*>(a.x) + (size_t)k * bd;
@@ -100,30 +100,7 @@ __global__ void __launch_bounds__(kThreads) layer_kernel(const LayerArgs a) {
       block_gemm<BF16, true>(Q, d, Hn, d, b, b, d, gs,
                              [&](int m, int n, float v) { S[(size_t)m * b + n] = v; });
       // masked exp against the row max (un-normalised), 1/sum per row
-      for (int r = warp; r < b; r += kWarps) {
-        float* sr = S + (size_t)r * b;
-        const bool row_ok = pad[r] > 0.f;
-        const int32_t* kw = keepk + (size_t)(r >> 5) * b;
-        const int bit = r & 31;
-        float mx = kNeg;
-        for (int j = lane; j < b; j += 32) {
-          const bool kept = row_ok && pad[j] > 0.f && ((kw[j] >> bit) & 1);
-          const float v = kept ? sr[j] : kNeg;
-          sr[j] = v;
-          mx = fmaxf(mx, v);
-        }
-        mx = warp_max(mx);
-        const float shift = fmaxf(mx, kNeg);
-        float sum = 0.f;
-        for (int j = lane; j < b; j += 32) {
-          const float p = expf(sr[j] - shift);
-          sr[j] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) INV[r] = mx > -1e29f ? 1.f / fmaxf(sum, 1e-10f) : 0.f;
-      }
-      __syncthreads();
+      masked_exp_rows(S, keepk, pad, b, INV);
       block_gemm<BF16, false>(S, b, Y, d, b, d, b, gs, [&](int m, int n, float v) {
         ATT[(size_t)m * d + n] += v * INV[m];
       });

@@ -1,9 +1,11 @@
 // Device building blocks shared by the gated graph transformer's kernels
-// (gated_block_attn.cu, gated_block_layer.cu, mincut_gate_block.cu).
+// (gated_block_attn.cu, gated_block_layer.cu, gated_block_mha.cu,
+// mincut_gate_block.cu).
 //
 // One block of kThreads threads works on one [B, D] partition at a time;
 // everything larger than a few KB lives in a per-block slice of a global
-// scratch buffer (L2-resident while the block works on it), and the block
+// scratch buffer (0.4-1.4 MB per block, so over the grid more than the
+// L2 holds), and the block
 // synchronises between stages. The pieces:
 //   * block_gemm: C = A B over the whole block, 128x128 output tiles,
 //     8x8 outputs per thread, k-steps of 8 staged through shared memory;
@@ -21,9 +23,13 @@
 //     step correctly rounded (no contraction, a pairwise halving tree for
 //     the row sums) so that the plain versions reproduce it bit for bit
 //     (ops/kernels/gated_block_attn.py: layer_norm_rows).
-//   * gate_signature: the LN-folded gate signature (K6c), also the
-//     epilogue of the fused layer with signature (K4b), so both give the
-//     same bits on the same stream.
+//   * masked_exp_rows: the gated attention's masked exponentials of one
+//     head, shared by the fused layer (K4a/K4b) and the gated MHA
+//     forward and backward (K5a/K5b).
+//   * logits_of_rows and positive_row_sums: the gate signature's logits
+//     and per-row reduction; gate_signature (LN first) is the LN-folded
+//     signature (K6c), also the epilogue of the fused layer with signature
+//     (K4b), so both give the same bits on the same stream.
 
 #pragma once
 
@@ -97,11 +103,12 @@ struct GemmSmem {
 
 // C[m][n] = sum_k A[m][k] * B[k][n] for m < M, n < N, summed in Acc
 // (float or double) and handed to epi(m, n, value) rounded to float. A is
-// row-major with leading dimension lda; B is row-major [K][N] (ldb) or,
-// with TRANS_B, stored as [N][K] so that B[k][n] = Bt[n * ldb + k]. Ends
-// with a barrier, so the block may read what the epilogue wrote.
-template <bool BF16, bool TRANS_B, typename Acc = float, typename AT, typename BT,
-          typename Epi>
+// row-major [M][K] with leading dimension lda or, with TRANS_A, stored as
+// [K][M] so that A[m][k] = At[k * lda + m]; B is row-major [K][N] (ldb)
+// or, with TRANS_B, stored as [N][K] so that B[k][n] = Bt[n * ldb + k].
+// Ends with a barrier, so the block may read what the epilogue wrote.
+template <bool BF16, bool TRANS_B, typename Acc = float, bool TRANS_A = false,
+          typename AT, typename BT, typename Epi>
 __device__ void block_gemm(const AT* __restrict__ A, int lda, const BT* __restrict__ B,
                            int ldb, int M, int N, int K, GemmSmem& sm, Epi epi) {
   const int tid = threadIdx.x;
@@ -116,9 +123,14 @@ __device__ void block_gemm(const AT* __restrict__ A, int lda, const BT* __restri
       for (int k0 = 0; k0 < K; k0 += kKStep) {
         __syncthreads();  // the previous k-step's tiles are consumed
         for (int i = tid; i < kTile * kKStep; i += kThreads) {
-          const int r = i / kKStep, c = i % kKStep;
+          int r, c;
+          if (TRANS_A) { r = i % kTile; c = i / kTile; }
+          else { r = i / kKStep; c = i % kKStep; }
           const int m = m0 + r, k = k0 + c;
-          sm.a[c][r] = (m < M && k < K) ? rnd<BF16>(ldf(A + (size_t)m * lda + k)) : 0.f;
+          float v = 0.f;
+          if (m < M && k < K)
+            v = TRANS_A ? ldf(A + (size_t)k * lda + m) : ldf(A + (size_t)m * lda + k);
+          sm.a[c][r] = rnd<BF16>(v);
         }
         for (int i = tid; i < kTile * kKStep; i += kThreads) {
           int r, c;
@@ -197,23 +209,60 @@ __device__ void layer_norm_rows(const XT* __restrict__ x, float* __restrict__ ou
   __syncthreads();
 }
 
-// Gate signature of one partition: h = LN(x) (eps 1e-5), s = (h A_sig) h^T
-// with compute-type operands, float64 sums rounded to float32 (so that
-// the plain version gives the same bits), and per row r the sum (float64,
-// rounded) and count of s[r][c] > eps over valid pairs (pad[r] > 0 and
-// pad[c] > 0). Scratch: Hn, Q [B, D] and S [B, B]; pad is in shared
-// memory.
+// The gated attention's masked exponentials of one head (K4a, K5a, K5b):
+// S [B, B] holds the scores; entry (r, j) is kept where the gate bit
+// (word r / 32 of column j, bit r % 32) and the pad pair are set, and
+// becomes exp(s - row max of the kept), rounded to float32 and not
+// normalised (exp(-1e30 - max) = 0 for the others); INV[r] =
+// 1 / max(row sum, 1e-10), or 0 for a row that keeps nothing (its entries
+// are then exp(0) = 1, so a caller that needs them as weights multiplies
+// by INV). One warp per row, sums in a fixed order.
+__device__ void masked_exp_rows(float* __restrict__ S, const int32_t* __restrict__ keepk,
+                                const float* pad, int B, float* __restrict__ INV) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < B; r += kWarps) {
+    float* sr = S + (size_t)r * B;
+    const bool row_ok = pad[r] > 0.f;
+    const int32_t* kw = keepk + (size_t)(r >> 5) * B;
+    const int bit = r & 31;
+    float mx = kNeg;
+    for (int j = lane; j < B; j += 32) {
+      const bool kept = row_ok && pad[j] > 0.f && ((kw[j] >> bit) & 1);
+      const float v = kept ? sr[j] : kNeg;
+      sr[j] = v;
+      mx = fmaxf(mx, v);
+    }
+    mx = warp_max(mx);
+    const float shift = fmaxf(mx, kNeg);
+    float sum = 0.f;
+    for (int j = lane; j < B; j += 32) {
+      const float p = expf(sr[j] - shift);
+      sr[j] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) INV[r] = mx > -1e29f ? 1.f / fmaxf(sum, 1e-10f) : 0.f;
+  }
+  __syncthreads();
+}
+
+// S = (H A_sig) H^T for one partition, H [B, D] of type XT: compute-type
+// operands, float64 sums rounded to float32 (so that the plain version
+// gives the same bits). Scratch Q [B, D]; S is [B, B].
 template <bool BF16, typename XT>
-__device__ void gate_signature(const XT* __restrict__ x, const float* pad,
-                               const float* __restrict__ A_sig, const float* __restrict__ g,
-                               const float* __restrict__ bb, float eps, int B, int D,
-                               float* Hn, float* Q, float* S, GemmSmem& gs,
-                               float* __restrict__ rsum, float* __restrict__ rcnt) {
-  layer_norm_rows<false>(x, Hn, g, bb, B, D, 1e-5f);
-  block_gemm<BF16, false, double>(Hn, D, A_sig, D, B, D, D, gs,
+__device__ void logits_of_rows(const XT* __restrict__ H, const float* __restrict__ A_sig,
+                               int B, int D, float* Q, float* S, GemmSmem& gs) {
+  block_gemm<BF16, false, double>(H, D, A_sig, D, B, D, D, gs,
                                   [&](int m, int n, float v) { Q[(size_t)m * D + n] = v; });
-  block_gemm<BF16, true, double>(Q, D, Hn, D, B, B, D, gs,
+  block_gemm<BF16, true, double>(Q, D, H, D, B, B, D, gs,
                                  [&](int m, int n, float v) { S[(size_t)m * B + n] = v; });
+}
+
+// Per row r of the logits S [B, B]: the sum (float64, rounded) and count
+// of S[r][c] > eps over valid pairs (pad[r] > 0 and pad[c] > 0). pad is in
+// shared memory.
+__device__ void positive_row_sums(const float* __restrict__ S, const float* pad, float eps,
+                                  int B, float* __restrict__ rsum, float* __restrict__ rcnt) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < B; r += kWarps) {
     double s = 0.0;
@@ -235,6 +284,20 @@ __device__ void gate_signature(const XT* __restrict__ x, const float* pad,
     }
   }
   __syncthreads();
+}
+
+// LN-folded gate signature of one partition (K6c, and K4b's epilogue):
+// h = LN(x) (eps 1e-5), s = (h A_sig) h^T (logits_of_rows), then
+// positive_row_sums. Scratch: Hn, Q [B, D] and S [B, B].
+template <bool BF16, typename XT>
+__device__ void gate_signature(const XT* __restrict__ x, const float* pad,
+                               const float* __restrict__ A_sig, const float* __restrict__ g,
+                               const float* __restrict__ bb, float eps, int B, int D,
+                               float* Hn, float* Q, float* S, GemmSmem& gs,
+                               float* __restrict__ rsum, float* __restrict__ rcnt) {
+  layer_norm_rows<false>(x, Hn, g, bb, B, D, 1e-5f);
+  logits_of_rows<BF16>(static_cast<const float*>(Hn), A_sig, B, D, Q, S, gs);
+  positive_row_sums(S, pad, eps, B, rsum, rcnt);
 }
 
 // Blocks a persistent launch may keep resident: min(grid, per-SM

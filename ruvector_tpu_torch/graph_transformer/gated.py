@@ -21,18 +21,24 @@ Kernel route (`fused_gate_attn`): "auto" takes it for CUDA tensors,
 "always" forces it (CPU tensors then run the kernels' plain versions),
 "never" runs the plain sublayer composition. On the kernel route the
 wrappers raise on shapes their kernels do not take (D other than 32, 64
-or 128; more than 8 heads; B > 512). On a halo-free layout with
-B % 32 == 0 the route runs four kernels: the LN-folded signature (K6c),
-the push-relabel gate (K7), the fused layer (K4a) and the fused layer
-that also emits the next layer's signature (K4b). Two parts of the route
-are not ported yet and run their plain versions on the card: with a halo
-the layer is the plain sublayer composition (the JAX package's gated MHA
-kernel, K5a), and with B % 32 != 0 the signature and the gate are the
-plain ones (the signature without LN, K6b; the JAX package's gate is
-plain there too). Both come with the training slice. The JAX package's
-chunked routes (`_ceil_chunked_map`, `_CHUNK_NB`) exist to fit 10M nodes
-into 16 GB of TPU memory and are not ported: the straight path runs at
-every nB.
+or 128; more than 8 heads; B > 512). On a halo-free layout a layer is one
+fused kernel (K4a; K4b when it also emits the next layer's signature);
+with a halo it is LN1, the gated MHA kernel (K5a) and the plain neighbour
+mix and FFN. With B % 32 == 0 the signature is the LN-folded kernel (K6c)
+and the gate the push-relabel kernel (K7); with B % 32 != 0 the signature
+is K6b on the normalized stream and the gate the plain batched one, as in
+the JAX package (`gate_kernel = fused and b % 32 == 0`).
+
+Training: `gated_graph_transformer_loss_with_masks` differentiates the
+forward under fixed masks. The fused layer is an autograd Function whose
+backward recomputes the sublayer composition with the gated MHA kernel
+and its recompute backward (K5a/K5b) inside, as the JAX package's
+custom_vjp does; the graph's edge table, the gate words and pad get no
+gradient. `remat` checkpoints each layer (torch.utils.checkpoint).
+
+The JAX package's chunked routes (`_ceil_chunked_map`, `_CHUNK_NB`,
+`_loss_chunked_halo_free`) exist to fit 10M nodes into 16 GB of TPU
+memory and are not ported: the straight path runs at every nB.
 
 The step branches on the host where JAX uses `lax.cond` (any partition
 flagged?), which is one device-to-host sync per layer per step.
@@ -40,10 +46,12 @@ flagged?), which is one device-to-host sync per layer per step.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 
 import torch
+import torch.utils.checkpoint
 
 from ruvector_tpu_torch.attention.mincut_device import mincut_gate_device
 from ruvector_tpu_torch.device import resolve_device
@@ -56,7 +64,11 @@ from ruvector_tpu_torch.nn.core import (
     xavier_normal,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
+    block_gate_signature,
     block_gate_signature_ln_x,
+    block_gate_signature_x,
+    fold_gated_attention_params,
+    gated_block_attention,
     pack_keep,
     unpack_keep,
 )
@@ -90,6 +102,9 @@ class GatedGraphTransformerConfig:
     # budget escalates (a second budget-sized solve) on steps where
     # partitions reach the bound
     max_gate_age: int = 0
+    # checkpoint each layer (torch.utils.checkpoint): the backward recomputes
+    # a layer's forward instead of keeping its activations
+    remat: bool = False
     compute_dtype: str = "float32"
     fused_gate_attn: str = "auto"
 
@@ -185,16 +200,34 @@ def gated_graph_transformer_apply(params: list[dict], cfg: GatedGraphTransformer
     x = fpad.reshape(nb, b, -1)
     pad = bdg.node_pad[..., None]
     stats = []
-    for p in params:
+
+    def layer(p, x):
         a, st = _gated_attention_block(_ln(p["ln1"], x), bdg.node_pad, p["wq"], p["wk"],
                                        p["wv"], p["wo"], cfg)
         x = x + a
         x = x + _neighbor_mix(_ln(p["ln_g"], x), bdg, p["w_gnn"]) * pad
         h2 = _ln(p["ln2"], x)
-        x = x + _linear(p["ffn_out"], gelu_tanh(_linear(p["ffn_in"], h2))) * pad
+        return x + _linear(p["ffn_out"], gelu_tanh(_linear(p["ffn_in"], h2))) * pad, st
+
+    for p in params:
+        x, st = _remat(cfg, layer, p, x)
         stats.append(st)
     out = x.reshape(nb * b, -1)
     return (out, stats) if with_stats else out
+
+
+def _loss(out, bdg: BlockDenseGraph, targets):
+    """Mean squared error over the real nodes."""
+    pad = bdg.node_pad.reshape(-1, 1)
+    err = (out - targets) * pad
+    return torch.sum(err * err) / torch.clamp(torch.sum(pad), min=1.0)
+
+
+def gated_graph_transformer_loss(params, cfg: GatedGraphTransformerConfig, fpad,
+                                 bdg: BlockDenseGraph, targets):
+    """Mean-squared node-embedding loss of the stateless forward (gates
+    solved in the call, no gradient through them)."""
+    return _loss(gated_graph_transformer_apply(params, cfg, fpad, bdg), bdg, targets)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +290,25 @@ def _signature_from_x(x, p, A_sig, node_pad, cfg):
     return _row_mean_signature(rsum, rcnt)
 
 
+def _signature_fused_x(h, A_sig, node_pad, cfg):
+    """Signature of the normalized stream h through the kernel (K6b): the
+    kernel route's signature where B % 32 != 0."""
+    rsum, rcnt = block_gate_signature_x(h.contiguous(), node_pad, A_sig.contiguous(),
+                                        eps=cfg.eps,
+                                        compute_bf16=cfg.compute_dtype == "bfloat16")
+    return _row_mean_signature(rsum, rcnt)
+
+
+def _signature_fused(q, k, node_pad, cfg):
+    """Signature from projected q and k through the kernel (K6a). The JAX
+    package defines this route (gated.py:291) but calls it nowhere; its
+    sums are ordered unlike _gate_signature's, so init and step must not
+    mix the two."""
+    rsum, rcnt = block_gate_signature(q.contiguous(), k.contiguous(), node_pad, eps=cfg.eps,
+                                      scale=1.0 / (cfg.head_dim ** 0.5) / cfg.num_heads)
+    return _row_mean_signature(rsum, rcnt)
+
+
 def _solve_gates_kernel(x_sel, pad_sel, A_sig, p, cfg):
     """Batched gate solve with LN1 folded in (K7). Returns keep [K, W, B]."""
     keep, _ = mincut_gate_block_from_x(
@@ -308,29 +360,42 @@ def _ffn_apply(p, h2, pad, out_dtype):
     return _linear(p["ffn_out"], mid).to(out_dtype) * pad[..., None].to(out_dtype)
 
 
-def _compose_layer(cfg, p, x, keep, pad, mix):
-    """One gated layer as plain sublayers. keep [nB, B, B] bool; mix(g)
-    gives the projected neighbour mix of the normalized stream g."""
+def _compose_layer(cfg, p, x, attn, pad, mix):
+    """One gated layer as sublayers: attn(h) gives the gated MHA of the
+    normalized stream h, mix(g) the projected neighbour mix of g."""
     dt = x.dtype
     h = _ln(p["ln1"], x).to(dt)
-    x = x + _attention_with_keep(h, pad, keep, p, cfg).to(dt)
+    x = x + attn(h).to(dt)
     g = _ln(p["ln_g"], x).to(dt)
     x = x + mix(g).to(dt) * pad[..., None].to(dt)
     h2 = _ln(p["ln2"], x).to(dt)
     return x + _ffn_apply(p, h2, pad, dt)
 
 
+def _attention(cfg, p, keep_p, pad, kernel: bool):
+    """The gated MHA sublayer under bit-packed masks keep_p: the kernel
+    (K5a forward, K5b backward) or the plain _attention_with_keep."""
+    if kernel:
+        A, Wvo = fold_gated_attention_params(p, cfg)
+        return lambda h: gated_block_attention(h, keep_p, pad, A, Wvo,
+                                               compute_bf16=cfg.compute_dtype == "bfloat16")
+    keep = unpack_keep(keep_p, pad.shape[-1])
+    return lambda h: _attention_with_keep(h, pad, keep, p, cfg)
+
+
 def _layer_body_halo_free(cfg, p, x, keep_p, pad, wdense):
     """The sublayer composition of one gated layer on a halo-free layout
     (the neighbour mix is one block-local product): the fused layer's
-    reference semantics."""
+    reference semantics and its backward's recompute, with the gated MHA
+    kernel on the kernel route."""
     dt = x.dtype
 
     def mix(g):
         agg = torch.matmul(wdense.to(dt).float(), g.float()).to(dt)
         return _linear(p["w_gnn"], agg)
 
-    return _compose_layer(cfg, p, x, unpack_keep(keep_p, x.shape[1]), pad, mix)
+    attn = _attention(cfg, p, keep_p, pad, _use_fused_attn(cfg, x.device))
+    return _compose_layer(cfg, p, x, attn, pad, mix)
 
 
 def _kernel_wdense(cfg, bdg: BlockDenseGraph) -> torch.Tensor:
@@ -339,11 +404,86 @@ def _kernel_wdense(cfg, bdg: BlockDenseGraph) -> torch.Tensor:
     return bdg.wdense_as(torch.bfloat16) if cfg.compute_dtype == "bfloat16" else bdg.wdense
 
 
+def _flatten(p: dict):
+    """A layer's parameters as (keys, leaves), in a fixed key order."""
+    keys, leaves = [], []
+    for k in sorted(p):
+        if isinstance(p[k], dict):
+            for kk in sorted(p[k]):
+                keys.append((k, kk))
+                leaves.append(p[k][kk])
+        else:
+            keys.append((k,))
+            leaves.append(p[k])
+    return tuple(keys), leaves
+
+
+def _unflatten(keys, leaves) -> dict:
+    p = {}
+    for key, t in zip(keys, leaves):
+        if len(key) == 1:
+            p[key[0]] = t
+        else:
+            p.setdefault(key[0], {})[key[1]] = t
+    return p
+
+
+# set while torch.utils.checkpoint recomputes a layer's forward (remat)
+_recompute_depth = 0
+
+
+@contextlib.contextmanager
+def _recomputing():
+    global _recompute_depth
+    _recompute_depth += 1
+    try:
+        yield
+    finally:
+        _recompute_depth -= 1
+
+
+class _FusedLayer(torch.autograd.Function):
+    """The one-kernel gated layer (K4a) with the JAX package's custom_vjp
+    (gated.py:580-621): the forward saves only its inputs, and the backward
+    recomputes _layer_body_halo_free under autograd (K5a/K5b inside on the
+    kernel route). The edge table, the gate words and pad get no gradient
+    (the JAX package's zero cotangents): the graph is data, not trained.
+    Under remat the checkpoint's recompute of this forward skips the
+    kernel: its output is never read there (the backward needs only the
+    saved inputs), as XLA drops the dead recompute in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, cfg, keys, keep_p, pad, wdense, x, *leaves):
+        ctx.cfg, ctx.keys = cfg, keys
+        ctx.save_for_backward(x, keep_p, pad, wdense, *leaves)
+        if _recompute_depth:
+            return torch.empty_like(x)
+        return gated_block_layer(x, keep_p, pad, wdense,
+                                 fold_gated_layer_params(_unflatten(keys, leaves), cfg),
+                                 compute_bf16=cfg.compute_dtype == "bfloat16")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, keep_p, pad, wdense, *leaves = ctx.saved_tensors
+        need = ctx.needs_input_grad[5:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip((x, *leaves), need)]
+            out = _layer_body_halo_free(ctx.cfg, _unflatten(ctx.keys, inputs[1:]), inputs[0],
+                                        keep_p, pad, wdense)
+            wrt = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g.to(out.dtype), allow_unused=True)
+                         if wrt else ())
+        grads = [next(grads) if t.requires_grad else None for t in inputs]
+        grads = [torch.zeros_like(t) if gr is None and t.requires_grad else gr
+                 for t, gr in zip(inputs, grads)]
+        return (None, None, None, None, None, *grads)
+
+
 def _fused_layer_halo_free(cfg, p, x, keep_p, pad, wdense):
-    """One-kernel gated layer forward (K4a). Forward-only: the kernel
-    raises on inputs that require grad."""
-    return gated_block_layer(x, keep_p, pad, wdense, fold_gated_layer_params(p, cfg),
-                             compute_bf16=cfg.compute_dtype == "bfloat16")
+    """One-kernel gated layer forward (K4a), differentiable through
+    _FusedLayer."""
+    keys, leaves = _flatten(p)
+    return _FusedLayer.apply(cfg, keys, keep_p, pad, wdense, x, *leaves)
 
 
 def _use_fused_layer(bdg):
@@ -368,15 +508,25 @@ def _layer_with_keep_emit_sig(p, p_next, cfg, x, bdg, keep_p):
 
 def _layer_with_keep(p, cfg, x, bdg, keep_p, fused=False):
     """One layer under bit-packed masks keep_p [nB, ceil(B/32), B] int32.
-    The kernel route on a halo-free layout is one fused kernel (K4a);
-    otherwise the plain sublayer composition. Every tensor between the
-    sublayers stays in x's dtype."""
+    The kernel route on a halo-free layout is one fused kernel (K4a); with
+    a halo it is LN1, the gated MHA kernel (K5a) and the plain neighbour
+    mix and FFN; otherwise the plain sublayer composition. Every tensor
+    between the sublayers stays in x's dtype."""
     pad = bdg.node_pad
     use_fused = fused and _use_fused_attn(cfg, x.device)
     if use_fused and _use_fused_layer(bdg):
         return _fused_layer_halo_free(cfg, p, x, keep_p, pad, _kernel_wdense(cfg, bdg))
-    return _compose_layer(cfg, p, x, unpack_keep(keep_p, bdg.block), pad,
+    return _compose_layer(cfg, p, x, _attention(cfg, p, keep_p, pad, use_fused), pad,
                           lambda g: _neighbor_mix(g, bdg, p["w_gnn"]))
+
+
+def _remat(cfg, layer, *args):
+    """layer(*args), checkpointed when cfg.remat (see _FusedLayer)."""
+    if not cfg.remat:
+        return layer(*args)
+    return torch.utils.checkpoint.checkpoint(
+        layer, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 
 def check_gate_age_feasibility(cfg: GatedGraphTransformerConfig, nb: int,
@@ -426,7 +576,8 @@ def gate_state_init(params, cfg: GatedGraphTransformerConfig, fpad, bdg: BlockDe
         else:
             h = _ln(p["ln1"], x).to(x.dtype)
             keeps.append(_solve_gates_plain(h, bdg.node_pad, A_sig, cfg))
-            sigs.append(_gate_signature(_pooled_from_x(h, bdg.node_pad, A_sig), cfg.eps))
+            sigs.append(_signature_fused_x(h, A_sig, bdg.node_pad, cfg) if fused else
+                        _gate_signature(_pooled_from_x(h, bdg.node_pad, A_sig), cfg.eps))
         x = _layer_with_keep(p, cfg, x, bdg, keeps[-1], fused=True)
     age0 = torch.zeros((len(params), nb), dtype=torch.int32, device=x.device)
     if cfg.max_gate_age > 0:
@@ -488,7 +639,8 @@ def gated_graph_transformer_step(params, cfg: GatedGraphTransformerConfig, fpad,
                                            bdg.node_pad[idx].contiguous(), A_sig, p, cfg)
         else:
             h = _ln(p["ln1"], x).to(x.dtype)
-            sig = _gate_signature(_pooled_from_x(h, bdg.node_pad, A_sig), cfg.eps)
+            sig = (_signature_fused_x(h, A_sig, bdg.node_pad, cfg) if fused else
+                   _gate_signature(_pooled_from_x(h, bdg.node_pad, A_sig), cfg.eps))
 
             def solve_masks(idx, h=h, A_sig=A_sig):
                 return _solve_gates_plain(h[idx], bdg.node_pad[idx], A_sig, cfg)
@@ -527,10 +679,24 @@ def gated_graph_transformer_step(params, cfg: GatedGraphTransformerConfig, fpad,
 
 def gated_graph_transformer_apply_with_masks(params, cfg: GatedGraphTransformerConfig, fpad,
                                              bdg: BlockDenseGraph, keep_masks):
-    """Forward under fixed bit-packed masks [L, nB, ceil(B/32), B] (from the
-    gate state); no gate solve."""
+    """Differentiable forward under fixed bit-packed masks [L, nB,
+    ceil(B/32), B] (from the gate state); no gate solve."""
     nb, b = bdg.n_blocks, bdg.block
     x = fpad.reshape(nb, b, -1)
+
+    def layer(p, x, keep):
+        return _layer_with_keep(p, cfg, x, bdg, keep, fused=True)
+
     for li, p in enumerate(params):
-        x = _layer_with_keep(p, cfg, x, bdg, keep_masks[li], fused=True)
+        x = _remat(cfg, layer, p, x, keep_masks[li])
     return x.reshape(nb * b, -1)
+
+
+def gated_graph_transformer_loss_with_masks(params, cfg: GatedGraphTransformerConfig, fpad,
+                                            bdg: BlockDenseGraph, keep_masks, targets):
+    """Mean-squared node-embedding loss under fixed masks: the train
+    step's loss (benchmarks/config5_r03.py:204-226). The JAX package's
+    whole-model chunked loss for nB > 4096 (`_loss_chunked_halo_free`) is
+    not ported; the straight path runs at every nB."""
+    return _loss(gated_graph_transformer_apply_with_masks(params, cfg, fpad, bdg, keep_masks),
+                 bdg, targets)

@@ -24,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("neighbor_mix", "block_dense_attn", "gated_block_attn", "mincut_gate_block",
-           "gated_block_layer")
+           "gated_block_layer", "gated_block_mha")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,12 +41,19 @@ SIGNATURES = {
     },
     "gated_block_attn": {
         "block_gate_signature_ln_x": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "block_gate_signature_x": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "block_gate_signature": [_P] * 6 + [_I] * 5 + [_F, _F, _P],
     },
     "mincut_gate_block": {
         "mincut_gate_block_from_x": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
     },
     "gated_block_layer": {
         "gated_block_layer": [_P] * 12 + [_I] * 9 + [_F, _F, _P],
+    },
+    "gated_block_mha": {
+        "gated_block_mha_fwd": [_P] * 7 + [_I] * 7 + [_P],
+        "gated_block_mha_bwd": [_P] * 10 + [_I] * 7 + [_P],
+        "reduce_partials": [_P] + [_I] * 2 + [_P, _P],
     },
 }
 

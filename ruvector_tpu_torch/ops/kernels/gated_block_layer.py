@@ -14,8 +14,11 @@ pass per block computes
 and K4b then reduces the next layer's (rsum, rcnt) from the output,
 rounded through the IO dtype first. In bf16 compute mode every product
 takes bf16 operands with float32 sums; the residual stream stays float32
-inside and is rounded once at the output. Forward only: the backward
-(a recompute through the sublayer composition) comes with training.
+inside and is rounded once at the output. The wrappers are forward-only
+(they raise on inputs that require grad); the fused layer's gradient is
+graph_transformer/gated.py's autograd Function, whose backward recomputes
+the sublayer composition with the gated MHA kernels (K5a/K5b) inside, as
+the JAX package's custom_vjp does.
 """
 
 from __future__ import annotations
@@ -30,19 +33,19 @@ from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     as_cdt,
     check_rows,
     fold_gated_attention_params,
+    gated_mha_reference,
     head_concat,
+    keep_valid,
     keep_words,
     layer_norm_rows,
     persistent_grid,
     signature_rows,
-    unpack_keep,
 )
 
 FOLDED_KEYS = ("A_cat", "Wvo_cat", "ln1_g", "ln1_b", "lng_g", "lng_b", "ln2_g", "ln2_b",
                "Wg", "bg", "Wi", "bi", "Wo", "bo")
 HEADS = (1, 2, 4, 8)
 LAYER_CTAS_PER_SM = 2
-NEG = -1e30
 
 
 def fold_gated_layer_params(p: dict, cfg) -> dict:
@@ -74,37 +77,13 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-def gated_mha_reference(hc, keepb, pad, A_cat, Wvo_cat, cdt):
-    """Gated MHA of one layer: hc [nB, B, D] (values already in the
-    compute dtype), keepb [nB, B, B] bool (kept and pad-valid). Per head:
-    s = (hc A_h) hc^T, masked exp against the row max, and the un-normalised
-    weights times hc Wvo_h scaled by 1 / sum; rows with nothing kept
-    give 0. Returns the float32 sum over heads (before the pad factor)."""
-    d = hc.shape[-1]
-    q = torch.matmul(hc, as_cdt(A_cat, cdt))
-    y = torch.matmul(hc, as_cdt(Wvo_cat, cdt))
-    attn = torch.zeros_like(hc)
-    for h in range(A_cat.shape[1] // d):
-        s = torch.matmul(as_cdt(q[..., h * d:(h + 1) * d], cdt), hc.transpose(1, 2))
-        s = torch.where(keepb, s, torch.full_like(s, NEG))
-        smax = torch.amax(s, dim=-1, keepdim=True)
-        pu = torch.exp(s - torch.clamp(smax, min=NEG))
-        inv = torch.where(smax > -1e29,
-                          1.0 / torch.clamp(torch.sum(pu, dim=-1, keepdim=True), min=1e-10),
-                          torch.zeros_like(smax))
-        attn = attn + torch.matmul(as_cdt(pu, cdt),
-                                   as_cdt(y[..., h * d:(h + 1) * d], cdt)) * inv
-    return attn
-
-
 def _layer_reference(x, keep_packed, pad, wdense, f, ln_eps, compute_bf16):
     """K4's residual stream after the three sublayers, float32."""
     cdt = torch.bfloat16 if compute_bf16 else torch.float32
     X = x.float()
-    b = X.shape[1]
     padf = pad.float()
     padc = padf[:, :, None]
-    keepb = unpack_keep(keep_packed, b) & ((padc * padf[:, None, :]) > 0)
+    keepb = keep_valid(keep_packed, pad)
     hc = as_cdt(layer_norm_rows(X, f["ln1_g"], f["ln1_b"], ln_eps), cdt)
     X = X + gated_mha_reference(hc, keepb, padf, f["A_cat"], f["Wvo_cat"], cdt) * padc
     g1 = layer_norm_rows(X, f["lng_g"], f["lng_b"], ln_eps)

@@ -26,7 +26,15 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
     block_dense_layer_fused,
 )
-from ruvector_tpu_torch.ops.kernels.gated_block_attn import block_gate_signature_ln_x, pack_keep
+from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
+    block_gate_signature,
+    block_gate_signature_ln_x,
+    block_gate_signature_x,
+    gated_block_attention_bwd,
+    gated_block_attention_fwd,
+    head_concat,
+    pack_keep,
+)
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
     gated_block_layer,
     gated_block_layer_with_sig,
@@ -40,6 +48,7 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import ruvector_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ruvector_tpu_torch.__path__, "ruvector_tpu_torch.")]
+assert "ruvector_tpu_torch.training.train" in names and "ruvector_tpu_torch.ops.distance" in names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -49,12 +58,14 @@ print(len(names), bad)
 
 
 def test_imports_no_jax_and_no_jax_package():
-    """Whole module names: `ruvector_tpu_torch` starts with `ruvector_tpu`."""
+    """Whole module names: `ruvector_tpu_torch` starts with `ruvector_tpu`.
+    The walk covers every module, the training package and the distance
+    ops included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20
+    assert int(count) >= 28
     assert bad == "[]"
 
 
@@ -149,12 +160,22 @@ def _run(kernel, device):
                                           compute_bf16=False, sig_eps=0.01)[0]
     if kernel == "block_gate_signature_ln_x":
         return block_gate_signature_ln_x(x, pad, A, *ln, eps=0.01, compute_bf16=False)[0]
+    if kernel == "block_gate_signature_x":
+        return block_gate_signature_x(x, pad, A, eps=0.01, compute_bf16=False)[0]
+    if kernel == "block_gate_signature":
+        return block_gate_signature(x, x, pad, eps=0.01, scale=0.5)[0]
+    A_cat = head_concat(torch.stack([A, A]))
+    if kernel == "gated_block_attention_fwd":
+        return gated_block_attention_fwd(x, keep, pad, A_cat, A_cat, compute_bf16=False)
+    if kernel == "gated_block_attention_bwd":
+        return gated_block_attention_bwd(x, keep, pad, A_cat, A_cat, x, compute_bf16=False)[1]
     return mincut_gate_block_from_x(x, pad, A, lam=0.5, eps=0.01, ln=ln)[1]
 
 
 _KERNELS = ["fused_neighbor_mix", "block_dense_attention", "block_dense_layer_fused",
-            "gated_block_layer", "gated_block_layer_with_sig", "block_gate_signature_ln_x",
-            "mincut_gate_block_from_x"]
+            "gated_block_layer", "gated_block_layer_with_sig", "gated_block_attention_fwd",
+            "gated_block_attention_bwd", "block_gate_signature", "block_gate_signature_x",
+            "block_gate_signature_ln_x", "mincut_gate_block_from_x"]
 
 
 @pytest.mark.parametrize("kernel", _KERNELS)
@@ -163,6 +184,7 @@ def test_cpu_tensors_take_plain_version_without_counting(kernel):
     out = _run(kernel, "cpu")
     assert torch.isfinite(out.float()).all()
     assert kernels.launch_counts() == {k: 0 for k in _KERNELS}
+    assert sorted(k.__name__ for k in kernels.KERNELS) == sorted(_KERNELS)
 
 
 @pytest.mark.parametrize("kernel", _KERNELS)

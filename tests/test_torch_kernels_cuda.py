@@ -8,7 +8,9 @@ test directory's conftest, which imports jax:
 
 Tolerances (max abs error on outputs of order 1): f32 1e-4, sums in
 another order; bf16 5e-2, the kernels round softmax weights against a
-running max where the plain versions use the row max.
+running max where the plain versions use the row max. Gradients (K5b)
+are held to the same bounds relative to each tensor's largest magnitude;
+signature counts (K6a/K6b/K6c) and gate masks (K7) must be equal.
 """
 
 import dataclasses
@@ -23,6 +25,7 @@ from ruvector_tpu_torch.graph_transformer import (
     gate_state_init,
     gated_graph_transformer_apply_with_masks,
     gated_graph_transformer_init,
+    gated_graph_transformer_loss_with_masks,
     gated_graph_transformer_step,
 )
 from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -34,8 +37,16 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_layer_fused_reference,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
+    block_gate_signature,
     block_gate_signature_ln_x,
     block_gate_signature_ln_x_reference,
+    block_gate_signature_reference,
+    block_gate_signature_x,
+    block_gate_signature_x_reference,
+    gated_block_attention_bwd,
+    gated_block_attention_bwd_reference,
+    gated_block_attention_fwd,
+    gated_block_attention_fwd_reference,
     pack_keep,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import _folded_shapes as _gated_folded_shapes
@@ -236,6 +247,118 @@ def test_mincut_gate_block_kernel(card, b, compute_bf16):
         torch.testing.assert_close(stats[:, 0], want_stats[:, 0], rtol=2e-3, atol=1e-4)
     assert float(stats[:2, 2, 0].min()) == 1.0      # the eye case applies its cuts
     assert launch_counts()["mincut_gate_block_from_x"] == 2
+
+
+def _rel_close(got, want, tol):
+    """max |got - want| within tol of want's largest magnitude."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    scale = max(float(want.float().abs().max()), 1e-6)
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("b", [48, 256])
+@pytest.mark.parametrize("compute_bf16", [False, True])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_gated_block_attention_kernels(card, xdt, compute_bf16, b):
+    """K5a and K5b against their plain versions: f32 1e-4 of each
+    tensor's scale (sums in another order), bf16 5e-2."""
+    x, pad, _, _, (keep, _), folded = _gated_inputs(card, xdt, b=b)
+    A_cat, Wvo_cat = folded["A_cat"], folded["Wvo_cat"]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(7)).to(card, xdt)
+    tol = TOL[torch.bfloat16 if torch.bfloat16 in (xdt,) or compute_bf16 else torch.float32]
+    out = gated_block_attention_fwd(x, keep, pad, A_cat, Wvo_cat, compute_bf16=compute_bf16)
+    assert out.dtype == xdt
+    _rel_close(out, gated_block_attention_fwd_reference(x, keep, pad, A_cat, Wvo_cat,
+                                                        compute_bf16=compute_bf16), tol)
+    got = gated_block_attention_bwd(x, keep, pad, A_cat, Wvo_cat, g, compute_bf16=compute_bf16)
+    want = gated_block_attention_bwd_reference(x, keep, pad, A_cat, Wvo_cat, g,
+                                               compute_bf16=compute_bf16)
+    assert got[0].dtype == xdt and got[1].dtype == torch.float32
+    for a, w in zip(got, want):
+        _rel_close(a, w, tol)
+    # the reduction runs in a fixed order: a second run repeats bit for bit
+    again = gated_block_attention_bwd(x, keep, pad, A_cat, Wvo_cat, g, compute_bf16=compute_bf16)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    counts = launch_counts()
+    assert counts["gated_block_attention_fwd"] == 1 and counts["gated_block_attention_bwd"] == 2
+
+
+@pytest.mark.parametrize("compute_bf16", [False, True])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_block_gate_signature_x_and_qk_kernels(card, xdt, compute_bf16):
+    """K6b and K6a against their plain versions: float64 sums on both
+    sides, so the counts are equal and the sums within 1e-6 relative."""
+    x, pad, A, _, _, _ = _gated_inputs(card, xdt, b=48)
+    x = 2.0 * x
+    rsum, rcnt = block_gate_signature_x(x, pad, A, eps=0.01, compute_bf16=compute_bf16)
+    want_s, want_c = block_gate_signature_x_reference(x, pad, A, eps=0.01,
+                                                      compute_bf16=compute_bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(rcnt, want_c) and float(rcnt.sum()) > 0
+    torch.testing.assert_close(rsum, want_s, rtol=1e-6, atol=0.0)
+    q = (x.float() @ A).to(xdt)
+    rsum, rcnt = block_gate_signature(q, x, pad, eps=0.01, scale=0.3)
+    want_s, want_c = block_gate_signature_reference(q, x, pad, eps=0.01, scale=0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(rcnt, want_c) and float(rcnt.sum()) > 0
+    torch.testing.assert_close(rsum, want_s, rtol=1e-6, atol=0.0)
+    counts = launch_counts()
+    assert counts["block_gate_signature_x"] == 1 and counts["block_gate_signature"] == 1
+
+
+def test_train_step_takes_the_kernels_at_d64(card):
+    """Under "auto" a D=64 train step launches K4a forward and K5a/K5b in
+    the backward's recompute (one each per layer), and its gradients match
+    the plain route's; a B=48 layout (B % 32 != 0) takes K6b."""
+    rng = np.random.default_rng(4)
+    n, block, d = 512, 128, 64
+    base = (np.arange(n)[:, None] // block) * block
+    idx = (base + rng.integers(0, block, (n, 8))).astype(np.int32)
+    ew = rng.uniform(0.1, 1.0, (n, 8)).astype(np.float32)
+    bdg = build_block_dense(idx, np.ones((n, 8), np.float32), ew, block=block, device=card)
+    cfg = GatedGraphTransformerConfig(dim=d, num_heads=4, num_layers=2, remat=True)
+    params = gated_graph_transformer_init(0, cfg, device=card)
+    fpad = bdg.pad_features(torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card))
+    with torch.no_grad():
+        keep = gate_state_init(params, cfg, fpad, bdg)["keep"]
+    grads = {}
+    for route in ("auto", "never"):
+        c = dataclasses.replace(cfg, fused_gate_attn=route)
+        leaves = [t.clone().requires_grad_(True) for layer in params for t in _leaves(layer)]
+        reset_launch_counts()
+        loss = gated_graph_transformer_loss_with_masks(_rebuild(params, leaves), c, fpad, bdg,
+                                                       keep, torch.zeros_like(fpad))
+        grads[route] = torch.autograd.grad(loss, leaves)
+        counts = launch_counts()
+        if route == "auto":
+            assert counts["gated_block_layer"] == 2
+            assert counts["gated_block_attention_fwd"] == 2
+            assert counts["gated_block_attention_bwd"] == 2
+        else:
+            assert not any(counts.values())
+    for a, w in zip(grads["auto"], grads["never"]):
+        _rel_close(a, w, 1e-3)
+    bdg48 = build_block_dense(idx[:480] % 480, np.ones((480, 8), np.float32), ew[:480],
+                              block=48, device=card)
+    reset_launch_counts()
+    with torch.no_grad():
+        gate_state_init(params, cfg, bdg48.pad_features(fpad[:480]), bdg48)
+    counts = launch_counts()
+    assert counts["block_gate_signature_x"] == 2 and counts["gated_block_attention_fwd"] == 2
+    assert counts["block_gate_signature_ln_x"] == 0 and counts["mincut_gate_block_from_x"] == 0
+
+
+def _leaves(layer):
+    return [v for k in sorted(layer)
+            for v in ([layer[k][kk] for kk in sorted(layer[k])] if isinstance(layer[k], dict)
+                      else [layer[k]])]
+
+
+def _rebuild(params, leaves):
+    it = iter(leaves)
+    return [{k: ({kk: next(it) for kk in sorted(layer[k])} if isinstance(layer[k], dict)
+                 else next(it)) for k in sorted(layer)} for layer in params]
 
 
 def test_auto_route_takes_the_kernels_at_d64(card):
