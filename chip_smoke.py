@@ -29,6 +29,17 @@ card:
     step, against the plain route.
   * the RuvectorLayer's contrastive train step (Adam) on the 100k-node
     graph.
+  * serving (`[serve]`): the query engine over the same 100k-node corpus
+    and graph with a 2-layer RuvectorLayer stack (d=128, 4 heads, f32, the
+    K3 route), 32 requests in each of its four modes, and the flat index
+    on the same queries.
+  * the attention re-rank (`[rerank]`): `retrieve_and_rerank` over a
+    1,000,000 x 128 corpus, 4 batches of 1024 queries at ef=256, which
+    takes the K8 kernel.
+  * the CSR SpMM path (`[csr_spmm]`, after benchmarks/csr_spmm_bench.py):
+    the padded SpMM, the K9 gather-fused SpMM on the whole graph and the
+    CSR SpMM on a regular 99,840-node k=16 graph; the degree-bucketed,
+    max-degree padded and CSR SpMM on a 50,000-node power-law graph.
 
 Prints one line per phase, the card's name and power limit, a `kernels`
 JSON line (launches on the main paths, error against the plain version,
@@ -53,11 +64,19 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ruvector_tpu_torch.graph import build_block_dense, build_knn_graph  # noqa: E402
+from ruvector_tpu_torch.attention import flash_attention  # noqa: E402
+from ruvector_tpu_torch.graph import (  # noqa: E402
+    CSRGraph,
+    NeighborGraph,
+    build_block_dense,
+    build_knn_graph,
+)
 from ruvector_tpu_torch.graph_transformer import gated  # noqa: E402
+from ruvector_tpu_torch.index import FlatIndex  # noqa: E402
 from ruvector_tpu_torch.models import (  # noqa: E402
     RuvectorNetConfig,
     ruvector_net_apply,
@@ -75,12 +94,17 @@ from ruvector_tpu_torch.nn.ruvector_layer import (  # noqa: E402
     ruvector_layer_init,
 )
 from ruvector_tpu_torch.ops import kernels  # noqa: E402
+from ruvector_tpu_torch.ops.distance import pairwise_cosine  # noqa: E402
 from ruvector_tpu_torch.ops.kernels import _lib  # noqa: E402
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (  # noqa: E402
     block_dense_attention,
     block_dense_attention_reference,
     block_dense_layer_fused,
     block_dense_layer_fused_reference,
+)
+from ruvector_tpu_torch.ops.kernels.flash_neighbor import (  # noqa: E402
+    flash_neighbor_attention,
+    flash_neighbor_attention_reference,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (  # noqa: E402
     as_cdt,
@@ -120,8 +144,28 @@ from ruvector_tpu_torch.ops.kernels.neighbor_mix import (  # noqa: E402
     fused_neighbor_mix,
     fused_neighbor_mix_reference,
 )
-from ruvector_tpu_torch.ops.segment import normalized_weights  # noqa: E402
+from ruvector_tpu_torch.ops.kernels.spmm import (  # noqa: E402
+    spmm_gather,
+    spmm_gather_reference,
+)
+from ruvector_tpu_torch.ops.segment import (  # noqa: E402
+    normalized_weights,
+    spmm_csr,
+    spmm_padded,
+)
+from ruvector_tpu_torch.ops.spmm_bucketed import build_bucket_plan, spmm_bucketed  # noqa: E402
 from ruvector_tpu_torch.parallel.ordering import graph_grow_blocks  # noqa: E402
+from ruvector_tpu_torch.serve import (  # noqa: E402
+    QueryEngine,
+    QueryMode,
+    RuvectorQuery,
+    attention_rerank,
+    retrieve_and_rerank,
+)
+from ruvector_tpu_torch.serve.rerank import (  # noqa: E402
+    rerank_scores,
+    retrieve_candidates,
+)
 from ruvector_tpu_torch.training import (  # noqa: E402
     TrainConfig,
     adam,
@@ -165,6 +209,10 @@ SOURCES = {
                                "ruvector_tpu/ops/pallas/gated_block_attn.py:423"),
     "block_gate_signature": ("ruvector_tpu_torch/csrc/gated_block_attn.cu",
                              "ruvector_tpu/ops/pallas/gated_block_attn.py:362"),
+    "flash_neighbor_attention": ("ruvector_tpu_torch/csrc/flash_neighbor.cu",
+                                 "ruvector_tpu/ops/pallas/flash_neighbor.py:69"),
+    "spmm_gather": ("ruvector_tpu_torch/csrc/spmm_gather.cu",
+                    "ruvector_tpu/ops/pallas/spmm.py:34"),
 }
 # kernels that no path of the JAX package reaches (shown, with launches 0)
 OFF_PATH = {"block_gate_signature": "no caller in the JAX package (gated.py:291 is unused)"}
@@ -190,6 +238,17 @@ C5_TRAIN_STEPS, C5_TRAIN_LR, C5_GRAD_PARTS = 4, 1e-3, 244
 H_NODES, H_CLUSTER, H_BLOCK, H_K, H_K_IN = 120_000, 120, 240, 16, 14
 H_STEPS = 2         # steady steps, then as many drift steps
 CONTRASTIVE_STEPS = 3
+# serving: requests per query mode, k and ef (the JAX defaults), query noise
+SERVE_PER_MODE, SERVE_K, SERVE_EF, SERVE_NOISE = 32, 10, 50, 0.05
+# the re-rank at the README's scale: corpus rows, batches of queries, ef
+# (retrieve_and_rerank's default, K8's threshold), k, query noise
+RR_NODES, RR_BATCHES, RR_BATCH, RR_EF, RR_K, RR_NOISE = 1_000_000, 4, 1024, 256, 10, 0.1
+# benchmarks/csr_spmm_bench.py's graphs: regular (clusters of 128, k=16),
+# the gather kernel's 12,288-row slice there, and the power-law graph
+CSR_NODES, CSR_K, K9_SLICE, PL_NODES = 99_840, 16, 12_288, 50_000
+# K8 against its plain version: (B, M, D, masked) at the re-rank's shape,
+# at benchmarks/suite.py:174's shape with a random mask, and ragged
+K8_PARITY = ((1024, 256, 128, False), (1024, 512, 128, True), (1000, 300, 64, True))
 
 
 def say(phase: str, **fields) -> None:
@@ -1107,6 +1166,338 @@ def train_report(c5: dict, halo: dict, gparams, gcfg) -> list:
                   "path": OFF_PATH["block_gate_signature"]}))
     return rows
 
+# ---------------------------------------------------------------------------
+# serving: the query engine, the flat index, the re-rank (K8); the CSR
+# SpMM path (K9)
+# ---------------------------------------------------------------------------
+
+def same_topk(name: str, ids_a, scores_a, ids_b, scores_b, tol: float,
+              min_equal: float = 0.0) -> float:
+    """Two top-k lists per row ([R, k] each), each with the scores of its
+    own ids: the scores agree within tol at every rank, and where the ids
+    differ, list b's id at that rank is either in list a's row (an order
+    swapped between tied scores) or scores within tol of list a's k-th
+    score (a tie at the boundary). At least min_equal of the rows must
+    have equal ids. Returns the share of rows with equal ids."""
+    ids_a, ids_b = np.asarray(ids_a), np.asarray(ids_b)
+    sa, sb = np.asarray(scores_a, np.float64), np.asarray(scores_b, np.float64)
+    score_err = float(np.abs(sa - sb).max())
+    differ = (ids_a != ids_b).any(axis=1)
+    ties_ok = True
+    for r in np.nonzero(differ)[0]:
+        for j in np.nonzero(ids_a[r] != ids_b[r])[0]:
+            ties_ok &= bool(ids_b[r, j] in ids_a[r] or abs(sb[r, j] - sa[r, -1]) <= tol)
+    equal = 1.0 - float(differ.mean())
+    ok = score_err <= tol and ties_ok and equal >= min_equal
+    say("agree", name=name, rows=len(ids_a), rows_ids_equal=equal, score_max_abs_err=score_err,
+        tol=tol, differ_only_at_ties=ties_ok, ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: top-k lists disagree")
+    return equal
+
+
+def phase_serve_parity() -> None:
+    """K8 against its plain version at K8_PARITY's shapes (8 fully masked
+    rows where masked)."""
+    gen = torch.Generator().manual_seed(3)
+    for b, m, d, masked in K8_PARITY:
+        q = torch.randn(b, d, generator=gen).to(DEV)
+        k, v = (torch.randn(b, m, d, generator=gen).to(DEV) for _ in range(2))
+        mask = None
+        if masked:
+            mask = (torch.rand(b, m, generator=gen) > 0.5).float()
+            mask[:8] = 0.0
+            mask = mask.to(DEV)
+        got = flash_neighbor_attention(q, k, v, mask)
+        agree(f"K8 flash_neighbor_attention [{b}, {m}, {d}] mask={masked}", got,
+              flash_neighbor_attention_reference(q, k, v, mask), torch.float32)
+        if masked and float(got[:8].abs().max()) != 0.0:
+            raise AssertionError("K8: fully masked rows must give 0")
+        del q, k, v, mask, got
+    torch.cuda.synchronize()
+
+
+def _latency(results) -> dict:
+    """Median and maximum (over SERVE_PER_MODE requests: too few for a p99)."""
+    ms = [r.latency_ms for r in results]
+    return {"p50": float(np.percentile(ms, 50)), "max": float(np.max(ms))}
+
+
+def phase_serve(feats_np: np.ndarray, feats, graph, d: int, heads: int) -> int:
+    """The query engine over the RuvectorLayer corpus and its kNN graph,
+    with a 2-layer f32 RuvectorLayer stack on the K3 route (seeds 0 and 1):
+    SERVE_PER_MODE requests in each mode (k=10, ef=50, depth 2, subgraph
+    depth 1), each a corpus row plus SERVE_NOISE N(0, 1), and the flat index
+    on the same queries. Returns K3's launches."""
+    n = feats.shape[0]
+    cfg = RuvectorLayerConfig(d, d, heads=heads, use_pallas=True)
+    stack = [ruvector_layer_init(seed, cfg, device=DEV) for seed in (0, 1)]
+    engine = QueryEngine(feats, graph, stack, [cfg, cfg])
+    rng = np.random.default_rng(5)
+    modes = (QueryMode.VECTOR_SEARCH, QueryMode.DIFFERENTIABLE_SEARCH, QueryMode.NEURAL_SEARCH,
+             QueryMode.SUBGRAPH_EXTRACTION)
+    rows = rng.choice(n, size=(len(modes), SERVE_PER_MODE), replace=False)
+    queries = (feats_np[rows] + SERVE_NOISE * rng.standard_normal(
+        (*rows.shape, d))).astype(np.float32)
+
+    def request(eng, mode, vec):
+        return eng.execute(RuvectorQuery(
+            vector=vec, mode=mode, k=SERVE_K, ef=SERVE_EF,
+            gnn_depth=1 if mode == QueryMode.SUBGRAPH_EXTRACTION else 2))
+
+    def run():
+        return {mode: [request(engine, mode, vec) for vec in queries[i]]
+                for i, mode in enumerate(modes)}
+
+    results, counts = counted(["fused_neighbor_mix"], run)
+    for mode, res in results.items():
+        for r in res:
+            if len(r.nodes) != SERVE_K or not np.isfinite(r.scores).all():
+                raise AssertionError(f"{mode.value}: {len(r.nodes)} nodes or non-finite scores")
+        if mode == QueryMode.SUBGRAPH_EXTRACTION and any(
+                not set(r.nodes) <= set(r.subgraph.nodes) for r in res):
+            raise AssertionError("subgraph: a seed is missing from its subgraph")
+    # an unperturbed corpus row finds itself at rank 0
+    own = int(rows[0, 0])
+    for mode in (QueryMode.VECTOR_SEARCH, QueryMode.DIFFERENTIABLE_SEARCH):
+        if request(engine, mode, feats_np[own]).nodes[0] != own:
+            raise AssertionError(f"{mode.value}: corpus row {own} is not its own top match")
+    # the flat index on the same queries: its ids are the cosine top-k,
+    # which vector, differentiable and subgraph search return as nodes
+    index = FlatIndex(dim=d, metric="cosine", device=DEV)
+    index.add_batch(feats_np)
+    flat_ids, flat_d = index.search_batch(queries.reshape(-1, d), k=SERVE_K)
+    flat_ids, flat_sim = flat_ids.reshape(len(modes), -1, SERVE_K), 1.0 - flat_d / 2.0
+    flat_sim = flat_sim.reshape(flat_ids.shape)
+    unit = feats_np / np.linalg.norm(feats_np, axis=1, keepdims=True)
+    for i, mode in enumerate(modes):
+        if mode == QueryMode.NEURAL_SEARCH:
+            continue
+        res = results[mode]
+        nodes = np.asarray([r.nodes for r in res])
+        # vector search scores cosines; the other two modes' scores are not,
+        # so their nodes are scored by their own cosines to the query
+        if mode == QueryMode.VECTOR_SEARCH:
+            scores = np.asarray([r.scores for r in res])
+        else:
+            qn = queries[i] / np.linalg.norm(queries[i], axis=1, keepdims=True)
+            scores = np.einsum("rkd,rd->rk", unit[nodes], qn)
+        same_topk(f"flat index vs {mode.value} nodes", flat_ids[i], flat_sim[i], nodes, scores,
+                  1e-5)
+    # neural search through K3 against the same engine on the slot route
+    plain = QueryEngine(feats, graph, stack, [dataclasses.replace(cfg, use_pallas=False)] * 2)
+    neural = results[QueryMode.NEURAL_SEARCH]
+    plain_res = [request(plain, QueryMode.NEURAL_SEARCH, v) for v in queries[2]]
+    same_topk("neural search: K3 route vs slot route", [r.nodes for r in neural],
+              [r.scores for r in neural], [r.nodes for r in plain_res],
+              [r.scores for r in plain_res], 1e-4)
+    lat = {mode.value: _latency(res[1:] if mode == QueryMode.NEURAL_SEARCH else res)
+           for mode, res in results.items()}
+    say("serve", nodes=n, d=d, heads=heads, layers=len(stack), k=SERVE_K, ef=SERVE_EF,
+        requests_per_mode=SERVE_PER_MODE, first_neural_ms=neural[0].latency_ms,
+        latency_ms=json.dumps(lat, separators=(",", ":")), k3_launches=counts["fused_neighbor_mix"],
+        flat_queries=flat_ids.size // SERVE_K)
+    return counts["fused_neighbor_mix"]
+
+
+def phase_rerank(d: int) -> dict:
+    """retrieve_and_rerank over an RR_NODES x d corpus (bench.py's
+    clustered data) on the card: RR_BATCHES batches of RR_BATCH queries,
+    each a corpus row plus RR_NOISE N(0, 1), at ef=RR_EF (K8 once per
+    batch) and k=RR_K; the kernel route against the plain flash route on
+    every batch, and the time of each stage on the last batch."""
+    # the brute-force product is float32 at full precision: phase_device
+    # turned TF32 off, as every f32 product here needs
+    t0 = time.perf_counter()
+    corpus_np = bench_features(RR_NODES, d)
+    corpus = torch.from_numpy(corpus_np).to(DEV)
+    rng = np.random.default_rng(6)
+    rows = rng.integers(0, RR_NODES, size=(RR_BATCHES, RR_BATCH))
+    batches = [(corpus_np[r] + RR_NOISE * rng.standard_normal((RR_BATCH, d))).astype(np.float32)
+               for r in rows]
+    del corpus_np
+    gen_s = time.perf_counter() - t0
+
+    def run():
+        out, times = [], []
+        for qb in batches:
+            res, ms = _synced_ms(lambda: retrieve_and_rerank(qb, corpus, ef=RR_EF, k=RR_K))
+            out.append(res)
+            times.append(ms)
+        return out, times
+
+    (results, times), counts = counted(["flash_neighbor_attention"], run)
+    if counts["flash_neighbor_attention"] != RR_BATCHES:
+        raise AssertionError(f"K8 launched {counts['flash_neighbor_attention']} times for "
+                             f"{RR_BATCHES} batches")
+    ids = torch.cat([r[0] for r in results]).cpu().numpy()
+    scores = torch.cat([r[1] for r in results]).cpu().numpy()
+    if ids.shape != (RR_BATCHES * RR_BATCH, RR_K) or not np.isfinite(scores).all() \
+            or (np.diff(scores, axis=1) > 1e-6).any():
+        raise AssertionError("re-rank: wrong shape, non-finite or unsorted scores")
+    plain_ids, plain_scores = [], []
+    with torch.no_grad():
+        for i, qb in enumerate(batches):
+            q = torch.from_numpy(qb).to(DEV)
+            cand = retrieve_candidates(q, corpus, RR_EF)
+            pool = corpus[cand]
+            agree(f"re-rank batch {i}: K8 context vs flash route", flash_neighbor_attention(
+                q, pool, pool), flash_attention(q, pool, pool, block_size=min(128, RR_EF)),
+                torch.float32)
+            p_ids, p_scores = attention_rerank(q, pool, cand, RR_K, use_pallas=False)
+            plain_ids.append(p_ids.cpu().numpy())
+            plain_scores.append(p_scores.cpu().numpy())
+    equal = same_topk("re-rank: K8 route vs flash route, top-k", ids, scores,
+                      np.concatenate(plain_ids), np.concatenate(plain_scores), 1e-5,
+                      min_equal=0.999)
+    # each query is its source row plus noise of norm ~RR_NOISE sqrt(d), a
+    # quarter of the distance to the row's cluster neighbours
+    src = rows.reshape(-1)
+    in_topk = float((ids == src[:, None]).any(axis=1).mean())
+    if in_topk < 0.99:
+        raise AssertionError(f"re-rank: the source row is in the top {RR_K} of only "
+                             f"{in_topk:.4f} of the queries")
+    with torch.no_grad():
+        # the stages of one batch (the last one's inputs)
+        ctx = flash_neighbor_attention(q, pool, pool)
+        stages = {
+            "product": time_ms(lambda: pairwise_cosine(q, corpus), iters=5),
+            "product_topk": time_ms(lambda: retrieve_candidates(q, corpus, RR_EF), iters=5),
+            "pool_gather": time_ms(lambda: corpus[cand], iters=5),
+            "k8": time_ms(lambda: flash_neighbor_attention(q, pool, pool), iters=10),
+            "blend_topk": time_ms(lambda: torch.topk(rerank_scores(q, ctx, pool), RR_K, dim=1),
+                                  iters=10)}
+    batch_ms = statistics.median(times)
+    say("rerank", corpus=RR_NODES, d=d, batches=RR_BATCHES, batch=RR_BATCH, ef=RR_EF, k=RR_K,
+        gen_s=round(gen_s, 3), batch_ms=[round(t, 3) for t in times], batch_ms_median=batch_ms,
+        queries_per_s=RR_BATCH / (batch_ms * 1e-3), k8_launches=counts["flash_neighbor_attention"],
+        rows_ids_equal_plain=equal, source_row_at_rank0=float((ids[:, 0] == src).mean()),
+        source_row_in_topk=in_topk,
+        stage_ms=json.dumps(stages, separators=(",", ":")))
+    return dict(q=q, pool=pool, launches=counts["flash_neighbor_attention"])
+
+
+def _edges_per_s(edges: int, ms: float) -> float:
+    return edges / (ms * 1e-3)
+
+
+def phase_csr_spmm(d: int) -> dict:
+    """The port's counterpart of benchmarks/csr_spmm_bench.py:58-159. The
+    regular graph (cluster_graph, CSR_NODES, k=16): spmm_padded, K9 on the
+    whole graph and spmm_csr, each held to spmm_csr within 1e-3 and K9 to
+    its plain version at f32 1e-4 / 1e-5; K9 against its plain version on
+    the 12,288-row slice and on uniform random indices (M=17, B = N - 1),
+    and the control. The power-law graph (zipf(1.7) x 4 degrees capped at
+    512, uniform destinations, weights U(0.1, 1), seed 0): spmm_bucketed
+    and the max-degree spmm_padded against spmm_csr within 1e-3."""
+    f32 = torch.float32
+    feats, idx, ew = cluster_graph(CSR_NODES, d, CSR_K)
+    n = feats.shape[0]
+    mask = torch.ones_like(ew)
+    w = (ew * mask).contiguous()
+    csr = NeighborGraph(idx, mask, ew).to_csr()
+    edges = csr.num_edges
+    want = spmm_csr(csr, feats)
+    got, counts = counted(["spmm_gather"], lambda: spmm_gather(feats, idx, w))
+    agree("K9 whole graph vs spmm_csr", got, want, f32, tol=(1e-3, 1e-4))
+    agree("K9 whole graph vs its plain version", got, spmm_gather_reference(feats, idx, w), f32)
+    agree("spmm_padded vs spmm_csr", spmm_padded(feats, idx, ew, mask), want, f32,
+          tol=(1e-3, 1e-4))
+    ms = {"spmm_padded": time_ms(lambda: spmm_padded(feats, idx, ew, mask), iters=10),
+          "k9_spmm_gather": time_ms(lambda: spmm_gather(feats, idx, w), iters=10),
+          "spmm_csr": time_ms(lambda: spmm_csr(csr, feats), iters=10)}
+    # K9 on the gather kernel's slice of the JAX bench, and without locality
+    npk = min(K9_SLICE, n)
+    fk, ik, wk = feats[:npk].contiguous(), (idx[:npk] % npk).contiguous(), w[:npk].contiguous()
+    agree(f"K9 on the {npk}-row slice", spmm_gather(fk, ik, wk),
+          spmm_gather_reference(fk, ik, wk), f32)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    ridx = torch.randint(0, n, (n - 1, 17), generator=gen, device=DEV, dtype=torch.int32)
+    rw = torch.rand(n - 1, 17, generator=gen, device=DEV)
+    agree("K9 uniform random indices M=17 B=N-1", spmm_gather(feats, ridx, rw),
+          spmm_gather_reference(feats, ridx, rw), f32)
+    w_drop = w.clone()
+    w_drop[0, 0] = 0.0
+    expect_rejected("K9 against a plain version without one edge", lambda: agree(
+        "control: K9 vs plain version without edge (0, 0)", got,
+        spmm_gather_reference(feats, idx, w_drop), f32))
+    say("csr_spmm_regular", nodes=n, k=CSR_K, d=d, edges=edges,
+        ms=json.dumps(ms, separators=(",", ":")),
+        edges_per_s=json.dumps({k: _edges_per_s(edges, v) for k, v in ms.items()},
+                               separators=(",", ":")),
+        k9_launches=counts["spmm_gather"])
+    del ridx, rw, want, got
+
+    rng = np.random.default_rng(0)
+    deg = np.minimum(rng.zipf(1.7, PL_NODES) * 4, 512).astype(np.int64)
+    src = np.repeat(np.arange(PL_NODES, dtype=np.int64), deg)
+    dst = rng.integers(0, PL_NODES, src.size).astype(np.int64)
+    w_e = rng.uniform(0.1, 1.0, src.size).astype(np.float32)
+    csr_pl = CSRGraph.from_edges(src, dst, w_e, PL_NODES, device=DEV)
+    feats_pl = torch.from_numpy(rng.standard_normal((PL_NODES, d)).astype(np.float32)).to(DEV)
+    e_pl = int(src.size)
+    ref = spmm_csr(csr_pl, feats_pl)
+    t0 = time.perf_counter()
+    plan = build_bucket_plan(csr_pl)
+    plan_s = time.perf_counter() - t0
+    agree("spmm_bucketed vs spmm_csr (power law)", spmm_bucketed(plan, feats_pl), ref, f32,
+          tol=(1e-3, 1e-4))
+    padded = csr_pl.to_padded()
+    agree("max-degree spmm_padded vs spmm_csr (power law)", spmm_padded(
+        feats_pl, padded.nbr_idx, padded.edge_weight, padded.nbr_mask), ref, f32,
+        tol=(1e-3, 1e-4))
+    ms_pl = {"spmm_padded_maxdeg": time_ms(lambda: spmm_padded(
+                 feats_pl, padded.nbr_idx, padded.edge_weight, padded.nbr_mask), iters=3),
+             "spmm_bucketed": time_ms(lambda: spmm_bucketed(plan, feats_pl), iters=10),
+             "spmm_csr": time_ms(lambda: spmm_csr(csr_pl, feats_pl), iters=10)}
+    cells = sum(r.shape[0] * c for r, c in zip(plan.rows, plan.caps))
+    say("csr_spmm_power_law", nodes=PL_NODES, edges=e_pl, max_degree=int(deg.max()),
+        mean_degree=float(deg.mean()), bucket_caps=list(plan.caps),
+        bucket_padding_waste=cells / e_pl, maxdeg_padding_waste=PL_NODES * int(deg.max()) / e_pl,
+        plan_s=round(plan_s, 3), ms=json.dumps(ms_pl, separators=(",", ":")),
+        edges_per_s=json.dumps({k: _edges_per_s(e_pl, v) for k, v in ms_pl.items()},
+                               separators=(",", ":")))
+    return dict(feats=feats, idx=idx, w=w, edges=edges, launches=counts["spmm_gather"])
+
+
+def serve_report(rr: dict, sp: dict) -> list:
+    """Report rows of K8 at the re-rank's shape (the last batch's queries
+    and pool; the pool passed as k and as v) and K9 at the regular graph's,
+    each with the one PyTorch call that computes the same function. Both
+    plain versions are timed over as many calls as the kernels."""
+    q, pool = rr["q"], rr["pool"]
+    b, m, d = pool.shape
+    f32 = torch.float32
+    # k is v: the function needs the pool once (q + pool + out); the bound
+    # of the arguments as passed, the pool twice, is reported beside it
+    k8_ops = {f32: 4 * b * m * d}
+    rows = [("flash_neighbor_attention",
+             lambda: flash_neighbor_attention(q, pool, pool),
+             lambda: flash_neighbor_attention_reference(q, pool, pool),
+             _agree_as(f32), bound(nbytes(q, pool) + nbytes(q), k8_ops),
+             {"shape": f"B={b}, M=ef={m}, D={d}, k = v = the pool",
+              "bound_ms_as_passed": bound(nbytes(q, pool, pool) + nbytes(q), k8_ops)[0],
+              "plain_iters": 10,
+              "library": lambda: F.scaled_dot_product_attention(
+                  q[:, None, None], pool[:, None], pool[:, None])[:, 0, 0],
+              "library_call": "F.scaled_dot_product_attention(q[:, None, None], k[:, None], "
+                              "v[:, None])"})]
+    feats, idx, w = sp["feats"], sp["idx"], sp["w"]
+    n_rows, fd = idx.numel(), feats.shape[1]
+    rows.append(("spmm_gather",
+                 lambda: spmm_gather(feats, idx, w),
+                 lambda: spmm_gather_reference(feats, idx, w),
+                 _agree_as(f32), bound(nbytes(feats, idx, w) + idx.shape[0] * fd * 4,
+                                       {f32: 2 * sp["edges"] * fd}),
+                 {"shape": f"N=B={feats.shape[0]}, M={idx.shape[1]}, D={fd} (regular graph)",
+                  "gather_bound_ms": n_rows * fd * 4 / PEAK_BYTES_PER_S * 1e3,
+                  "plain_iters": 10,
+                  "library": lambda: F.embedding_bag(idx, feats, per_sample_weights=w,
+                                                     mode="sum"),
+                  "library_call": "F.embedding_bag(nbr, feat, per_sample_weights=w, "
+                                  "mode='sum')"}))
+    return rows
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1125,6 +1516,7 @@ def main() -> int:
     gparams = gated.gated_graph_transformer_init(0, gcfg, device=DEV)
     phase_gated_parity(gparams, gcfg)
     phase_train_parity(gparams, gcfg)
+    phase_serve_parity()
 
     # --- main path: the bench's headline route ------------------------------
     t0 = time.perf_counter()
@@ -1203,6 +1595,13 @@ def main() -> int:
     launches["block_gate_signature"] = 0
     phase_contrastive(params, cfg, feats, graph)
 
+    # --- serving: the query engine, the re-rank (K8), the CSR SpMM path (K9)
+    launches["fused_neighbor_mix"] += phase_serve(feats_np, feats, graph, d, heads)
+    rr = phase_rerank(d)
+    launches["flash_neighbor_attention"] = rr["launches"]
+    sp = phase_csr_spmm(d)
+    launches["spmm_gather"] = sp["launches"]
+
     # --- kernels at the main paths' shapes ------------------------------------
     report = []
     with torch.no_grad():
@@ -1261,22 +1660,32 @@ def main() -> int:
                        {}))
         report += config5_report(c5, gparams, gcfg)
         report += train_report(c5, c5_halo, gparams, gcfg)
+        report += serve_report(rr, sp)
 
         lines = []
         for name, fn, ref, check, (bound_ms, bound_by), extra in report:
-            err = check(f"{name} at main-path shapes", fn(), ref())
+            want = ref()
+            err = check(f"{name} at main-path shapes", fn(), want)
             ms = time_ms(fn, iters=10)
-            plain_ms = time_ms(ref, iters=2, warmup=1)
+            plain_ms = time_ms(ref, iters=extra.pop("plain_iters", 2), warmup=1)
+            # the one PyTorch call that computes the same function, where
+            # there is one: timed as a yardstick, never called by the port
+            library = extra.pop("library", None)
+            library_ms = None
+            if library is not None:
+                extra["library_max_abs_err"] = float((library().float() - want.float()).abs().max())
+                library_ms = time_ms(library, iters=10)
             source, replaces = SOURCES[name]
             if launches[name] < 1 and name not in OFF_PATH:
                 raise AssertionError(f"{name} was not launched on its path")
             lines.append({"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "launches": launches[name],
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                           **extra})
             say("kernel", name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, **extra)
+                bound_by=bound_by, library_ms=library_ms, **extra)
+            del want
     say("done", seconds=round(time.perf_counter() - t_start, 1),
         peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
     print(json.dumps({"kernels": lines}), flush=True)

@@ -10,6 +10,7 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
     block_dense_layer_fused,
 )
+from ruvector_tpu_torch.ops.kernels.flash_neighbor import flash_neighbor_attention
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     block_gate_signature,
     block_gate_signature_ln_x,
@@ -23,11 +24,13 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
 )
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_from_x
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
+from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather
 
 KERNELS = (block_dense_layer_fused, block_dense_attention, fused_neighbor_mix,
            gated_block_layer, gated_block_layer_with_sig, gated_block_attention_fwd,
            gated_block_attention_bwd, block_gate_signature, block_gate_signature_x,
-           block_gate_signature_ln_x, mincut_gate_block_from_x)
+           block_gate_signature_ln_x, mincut_gate_block_from_x, flash_neighbor_attention,
+           spmm_gather)
 
 
 def launch_counts() -> dict[str, int]:
@@ -41,6 +44,6 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNELS", "block_dense_attention", "block_dense_layer_fused",
            "block_gate_signature", "block_gate_signature_ln_x", "block_gate_signature_x",
-           "fused_neighbor_mix", "gated_block_attention_bwd", "gated_block_attention_fwd",
-           "gated_block_layer", "gated_block_layer_with_sig", "launch_counts",
-           "mincut_gate_block_from_x", "reset_launch_counts"]
+           "flash_neighbor_attention", "fused_neighbor_mix", "gated_block_attention_bwd",
+           "gated_block_attention_fwd", "gated_block_layer", "gated_block_layer_with_sig",
+           "launch_counts", "mincut_gate_block_from_x", "reset_launch_counts", "spmm_gather"]

@@ -24,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("neighbor_mix", "block_dense_attn", "gated_block_attn", "mincut_gate_block",
-           "gated_block_layer", "gated_block_mha")
+           "gated_block_layer", "gated_block_mha", "flash_neighbor", "spmm_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +54,12 @@ SIGNATURES = {
         "gated_block_mha_fwd": [_P] * 7 + [_I] * 7 + [_P],
         "gated_block_mha_bwd": [_P] * 10 + [_I] * 7 + [_P],
         "reduce_partials": [_P] + [_I] * 2 + [_P, _P],
+    },
+    "flash_neighbor": {
+        "flash_neighbor_f32": [_P] * 5 + [_I] * 3 + [_F, _P],
+    },
+    "spmm_gather": {
+        "spmm_gather_f32": [_P] * 4 + [_I] * 4 + [_P],
     },
 }
 

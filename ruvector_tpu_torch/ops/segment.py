@@ -1,7 +1,12 @@
-"""Padded-layout message-passing ops: masked softmax, weighted mean,
-SpMM and SDDMM (port of ruvector_tpu/ops/segment.py:21-76).
+"""Message-passing ops in two layouts (port of ruvector_tpu/ops/segment.py).
 
-The CSR-layout functions of the JAX module are not ported yet.
+- padded `[N, M]` (NeighborGraph): masked softmax, weighted mean, SpMM and
+  SDDMM as masked dense reductions (`:21-76`);
+- CSR (CSRGraph): SpMM, SDDMM and the row-wise softmax over per-edge
+  scores (`:82-104`). JAX's `segment_sum` becomes `index_add_` and
+  `segment_max` becomes `scatter_reduce("amax")` over a `-inf` fill. On
+  the card `index_add_` adds with atomics, so the CSR sums change order
+  from run to run: compare them with a tolerance.
 """
 
 from __future__ import annotations
@@ -56,3 +61,38 @@ def sddmm_padded(q: torch.Tensor, k_feats: torch.Tensor, nbr_idx: torch.Tensor,
     """scores[i, j] = <q[i], k[nbr[i, j]]>; padding positions return 0."""
     kg = k_feats[nbr_idx.long()]
     return torch.einsum("nd,nmd->nm", q, kg) * mask
+
+
+# ---------------------------------------------------------------------------
+# CSR layout
+# ---------------------------------------------------------------------------
+
+def _segment_sum(values: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
+    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype, device=values.device)
+    return out.index_add_(0, rows, values)
+
+
+def spmm_csr(graph, features: torch.Tensor) -> torch.Tensor:
+    """CSR SpMM: out[i] = sum_{e in row i} values[e] * x[col_idx[e]]."""
+    rows = graph.row_ids().long()
+    contrib = features[graph.col_idx.long()] * graph.values[:, None]
+    return _segment_sum(contrib, rows, graph.num_nodes)
+
+
+def sddmm_csr(graph, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """CSR SDDMM: per-edge scores e -> <q[row(e)], k[col(e)]>. Returns [E]."""
+    rows = graph.row_ids().long()
+    return torch.sum(q[rows] * k[graph.col_idx.long()], dim=-1)
+
+
+def segment_softmax_csr(graph, scores: torch.Tensor) -> torch.Tensor:
+    """Row-wise softmax over per-edge scores [E] -> [E]. A row without
+    edges has max -inf, which becomes 0 as in JAX (`segment.py:100`)."""
+    rows = graph.row_ids().long()
+    n = graph.num_nodes
+    fill = torch.full((n,), -torch.inf, dtype=scores.dtype, device=scores.device)
+    row_max = fill.scatter_reduce(0, rows, scores, "amax", include_self=False)
+    row_max = torch.where(torch.isfinite(row_max), row_max, torch.zeros_like(row_max))
+    e = torch.exp(scores - row_max[rows])
+    denom = torch.clamp(_segment_sum(e, rows, n), min=1e-10)
+    return e / denom[rows]

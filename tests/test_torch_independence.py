@@ -20,12 +20,14 @@ from ruvector_tpu_torch.graph_transformer import (
     GatedGraphTransformerConfig,
     gated_graph_transformer_init,
 )
+from ruvector_tpu_torch.index import FlatIndex
 from ruvector_tpu_torch.models import RuvectorNetConfig, ruvector_net_init
 from ruvector_tpu_torch.nn.ruvector_layer import RuvectorLayerConfig, ruvector_layer_init
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
     block_dense_layer_fused,
 )
+from ruvector_tpu_torch.ops.kernels.flash_neighbor import flash_neighbor_attention
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     block_gate_signature,
     block_gate_signature_ln_x,
@@ -41,6 +43,7 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
 )
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_from_x
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
+from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -49,6 +52,7 @@ import importlib, pkgutil, sys
 import ruvector_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ruvector_tpu_torch.__path__, "ruvector_tpu_torch.")]
 assert "ruvector_tpu_torch.training.train" in names and "ruvector_tpu_torch.ops.distance" in names
+assert "ruvector_tpu_torch.serve.rerank" in names and "ruvector_tpu_torch.ops.kernels.spmm" in names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -59,13 +63,13 @@ print(len(names), bad)
 
 def test_imports_no_jax_and_no_jax_package():
     """Whole module names: `ruvector_tpu_torch` starts with `ruvector_tpu`.
-    The walk covers every module, the training package and the distance
-    ops included."""
+    The walk covers every module, the training package, the distance ops,
+    the serving path and the K8/K9 wrappers included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 28
+    assert int(count) >= 38
     assert bad == "[]"
 
 
@@ -86,6 +90,7 @@ _ENTRY_POINTS = {
     "build_block_dense": lambda: build_block_dense(
         np.zeros((4, 1), np.int32), np.ones((4, 1), np.float32),
         np.ones((4, 1), np.float32), block=4),
+    "FlatIndex": lambda: FlatIndex(dim=4),
 }
 
 
@@ -145,7 +150,26 @@ def _gated_inputs(device):
             keep.to(device), wd.to(device), {k: v.to(device) for k, v in folded.items()})
 
 
+def _k8_inputs(device):
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(s, generator=g) for s in ((3, 32), (3, 5, 32), (3, 5, 32)))
+    mask = (torch.rand(3, 5, generator=g) > 0.3).float()
+    return [x.to(device) for x in (q, k, v, mask)]
+
+
+def _k9_inputs(device):
+    g = torch.Generator().manual_seed(5)
+    feats = torch.randn(10, 8, generator=g)
+    idx = torch.randint(0, 10, (4, 3), generator=g, dtype=torch.int32)
+    w = torch.rand(4, 3, generator=g)
+    return [x.to(device) for x in (feats, idx, w)]
+
+
 def _run(kernel, device):
+    if kernel == "flash_neighbor_attention":
+        return flash_neighbor_attention(*_k8_inputs(device))
+    if kernel == "spmm_gather":
+        return spmm_gather(*_k9_inputs(device))
     if kernel == "fused_neighbor_mix":
         return fused_neighbor_mix(*_k3_inputs(device), heads=2, scale=0.5)
     if kernel == "block_dense_attention":
@@ -175,7 +199,8 @@ def _run(kernel, device):
 _KERNELS = ["fused_neighbor_mix", "block_dense_attention", "block_dense_layer_fused",
             "gated_block_layer", "gated_block_layer_with_sig", "gated_block_attention_fwd",
             "gated_block_attention_bwd", "block_gate_signature", "block_gate_signature_x",
-            "block_gate_signature_ln_x", "mincut_gate_block_from_x"]
+            "block_gate_signature_ln_x", "mincut_gate_block_from_x", "flash_neighbor_attention",
+            "spmm_gather"]
 
 
 @pytest.mark.parametrize("kernel", _KERNELS)

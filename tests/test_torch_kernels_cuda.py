@@ -10,7 +10,8 @@ Tolerances (max abs error on outputs of order 1): f32 1e-4, sums in
 another order; bf16 5e-2, the kernels round softmax weights against a
 running max where the plain versions use the row max. Gradients (K5b)
 are held to the same bounds relative to each tensor's largest magnitude;
-signature counts (K6a/K6b/K6c) and gate masks (K7) must be equal.
+signature counts (K6a/K6b/K6c) and gate masks (K7) must be equal. K8 and
+K9 (f32 sums of up to 300 terms) are held to f32 1e-4.
 """
 
 import dataclasses
@@ -35,6 +36,10 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention_reference,
     block_dense_layer_fused,
     block_dense_layer_fused_reference,
+)
+from ruvector_tpu_torch.ops.kernels.flash_neighbor import (
+    flash_neighbor_attention,
+    flash_neighbor_attention_reference,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     block_gate_signature,
@@ -64,6 +69,7 @@ from ruvector_tpu_torch.ops.kernels.neighbor_mix import (
     fused_neighbor_mix,
     fused_neighbor_mix_reference,
 )
+from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather, spmm_gather_reference
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -387,3 +393,74 @@ def test_auto_route_takes_the_kernels_at_d64(card):
         plain = gated_graph_transformer_apply_with_masks(
             params, dataclasses.replace(cfg, fused_gate_attn="never"), fpad, bdg, state["keep"])
     torch.testing.assert_close(out, plain, atol=TOL[torch.float32], rtol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the serving re-rank's attention (K8) and the gather-fused SpMM (K9)
+# ---------------------------------------------------------------------------
+
+def _k8_inputs(dev, b, m, d, masked, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g).to(dev) for s in ((b, d), (b, m, d), (b, m, d)))
+    mask = None
+    if masked:
+        mask = (torch.rand(b, m, generator=g) > 0.5).float()
+        mask[3] = 0.0                                  # a fully masked row
+        mask[5, : m // 2] = 0.0
+        mask = mask.to(dev)
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("b,m,d,masked", [(64, 256, 128, False), (64, 256, 128, True),
+                                          (37, 300, 64, True), (33, 5, 64, False),
+                                          (16, 100, 32, True), (16, 70, 256, True)])
+def test_flash_neighbor_attention_kernel(card, b, m, d, masked):
+    q, k, v, mask = _k8_inputs(card, b, m, d, masked)
+    got = flash_neighbor_attention(q, k, v, mask)
+    _close(got, flash_neighbor_attention_reference(q, k, v, mask), torch.float32)
+    if masked:
+        assert float(got[3].abs().max()) == 0.0
+    assert launch_counts()["flash_neighbor_attention"] == 1
+    # fully masked everywhere: zeros; runs repeat bit for bit (no atomics)
+    if mask is not None:
+        assert float(flash_neighbor_attention(q, k, v, torch.zeros_like(mask)).abs().max()) == 0.0
+        assert torch.equal(flash_neighbor_attention(q, k, v, mask), got)
+
+
+@pytest.mark.parametrize("n,b,m,d", [(200, 64, 16, 128), (1000, 333, 17, 128),
+                                     (500, 45, 40, 64), (300, 10, 3, 260)])
+def test_spmm_gather_kernel(card, n, b, m, d):
+    g = torch.Generator().manual_seed(n)
+    feats = torch.randn(n, d, generator=g).to(card)
+    idx = torch.randint(0, n, (b, m), generator=g, dtype=torch.int32)
+    idx[1, 2], idx[4, 0] = -3, n + 7                   # out of range: adds nothing
+    w = (torch.rand(b, m, generator=g) * (torch.rand(b, m, generator=g) > 0.2)).to(card)
+    idx = idx.to(card)
+    got = spmm_gather(feats, idx, w)
+    _close(got, spmm_gather_reference(feats, idx, w), torch.float32)
+    assert launch_counts()["spmm_gather"] == 1
+
+
+def test_k8_k9_wrappers_raise_on_unsupported_input(card):
+    q, k, v, mask = _k8_inputs(card, 8, 20, 64, True)
+    for bad, match in (((q.bfloat16(), k, v, mask), "float32"),
+                       ((q, k.transpose(1, 2).contiguous().transpose(1, 2), v, mask),
+                        "contiguous"),
+                       ((q, k, v.cpu(), mask), "different devices"),
+                       ((q[:, :48].contiguous(), k[..., :48].contiguous(),
+                         v[..., :48].contiguous(), mask), "feature width")):
+        with pytest.raises(ValueError, match=match):
+            flash_neighbor_attention(*bad)
+    assert launch_counts()["flash_neighbor_attention"] == 0
+    feats = torch.randn(30, 16, device=card)
+    idx = torch.randint(0, 30, (5, 4), device=card, dtype=torch.int32)
+    w = torch.rand(5, 4, device=card)
+    for bad, match in (((feats.bfloat16(), idx, w), "float32"),
+                       ((feats, idx.long(), w), "int32"),
+                       ((feats, idx.t().contiguous().t(), w.t().contiguous().t()),
+                        "contiguous"),
+                       ((feats, idx, w.cpu()), "different devices"),
+                       ((feats[:, :6].contiguous(), idx, w), "feature width")):
+        with pytest.raises(ValueError, match=match):
+            spmm_gather(*bad)
+    assert launch_counts()["spmm_gather"] == 0
