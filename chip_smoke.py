@@ -133,6 +133,7 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (  # noqa: E402
     gated_block_layer_reference,
     gated_block_layer_with_sig,
     gated_block_layer_with_sig_reference,
+    layer_body,
 )
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (  # noqa: E402
     gate_from_logits,
@@ -373,6 +374,26 @@ def phase_device() -> None:
         torch=torch.__version__, cuda=torch.version.cuda)
 
 
+def ptxas_entries(text: str) -> list[dict]:
+    """Registers and spill bytes of each kernel entry in an nvcc -Xptxas -v log."""
+    entries = []
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            # the layer's kernels by name and template arguments (mangled)
+            short = re.search(r"((?:tc_)?layer_kernelI\w*?)EvNS", m.group(1))
+            name = short.group(1) if short else m.group(1)
+            if not entries or entries[-1]["entry"] != name:
+                entries.append({"entry": name})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entries:
+            entries[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entries:
+            entries[-1]["registers"] = int(m.group(1))
+    return entries
+
+
 def phase_build() -> None:
     seconds = _lib.build()
     spills = []
@@ -382,10 +403,14 @@ def phase_build() -> None:
         spills += [line.strip() for line in text.splitlines()
                    if re.search(r"\b[1-9]\d* bytes spill", line)]
         _lib.load(name)
-    say("build", seconds=round(seconds, 3), sources=",".join(_lib.SOURCES),
+    say("build", seconds=round(seconds.pop("total", 0.0), 3), sources=",".join(_lib.SOURCES),
         ptxas_lines_with_spills=len(spills))
+    say("build_sources", **{name: round(t, 3) for name, t in seconds.items()})
     for line in spills[:8]:
         print("  ptxas:", line, flush=True)
+    # the fused layer's instances: the tensor-core body and block_gemm's
+    for e in ptxas_entries(_lib.log_path("gated_block_layer").read_text()):
+        say("build_ptxas", source="gated_block_layer", **e)
 
 
 def _sparse_wd(nb, b, t, per_row, gen):
@@ -531,8 +556,10 @@ def phase_gated_parity(gparams, gcfg) -> None:
     """K4a/K4b/K6c/K7 against their plain versions at config 5's widths
     (D=128, 4 heads, FFN x4, B=256), with a short tail block (pad rows),
     a sparse keep mask with a row that keeps nothing, a degree-0 row, in
-    f32 and bf16 compute; K7 on random partitions and on partitions built
-    so that the cut applies."""
+    f32 and bf16 compute; K4a/K4b in bf16 also at B=200, at D=64 and at
+    B=320 (each body of the kernel), and a control that must be rejected
+    (K4a without one head); K7 on random partitions and on partitions
+    built so that the cut applies."""
     gen = torch.Generator().manual_seed(1)
     nb, b, d = 3, C5_BLOCK, gcfg.dim
     x = torch.randn(nb, b, d, generator=gen).to(DEV)
@@ -569,6 +596,44 @@ def phase_gated_parity(gparams, gcfg) -> None:
         agree_signature(f"K6c block_gate_signature_ln_x {tag}",
                         block_gate_signature_ln_x(x, pad, *sig, eps=gcfg.eps, compute_bf16=cbf),
                         x, pad, sig, cbf, gcfg.eps)
+    # control: K4a without head 0's contribution (its Wvo columns zeroed)
+    wdb = wd.to(torch.bfloat16)
+    no_head = dict(folded, Wvo_cat=folded["Wvo_cat"].clone())
+    no_head["Wvo_cat"][:, :d] = 0.0
+    expect_rejected("K4a without one head's contribution", lambda: agree(
+        "control: K4a without head 0",
+        gated_block_layer(x, keep, pad, wdb, no_head, compute_bf16=True),
+        gated_block_layer_reference(x, keep, pad, wdb, folded, compute_bf16=True),
+        torch.bfloat16))
+    # the bf16 bodies at other shapes: a ragged B and D=64 on the tensor
+    # cores (zero-filled rows, masked stores), B in (256, 512] on block_gemm
+    cfg64 = dataclasses.replace(gcfg, dim=64)
+    p64, p64_next = gated.gated_graph_transformer_init(1, cfg64, device=DEV)
+    cases = ((200, folded, sig),
+             (256, fold_gated_layer_params(p64, cfg64),
+              (gated._fold_sig_params(p64_next, cfg64), *gated._ln_vectors(p64_next["ln1"]))),
+             (320, folded, sig))
+    for bc, fc, sc in cases:
+        dc = fc["Wg"].shape[0]
+        xc = torch.randn(nb, bc, dc, generator=gen).to(DEV)
+        pc = torch.ones(nb, bc)
+        pc[-1, bc - bc // 4:] = 0.0
+        pc = pc.to(DEV)
+        kc = torch.rand(nb, bc, bc, generator=gen) < 0.3
+        kc[0, 5] = False
+        kc = pack_keep(kc).to(DEV)
+        wc = _sparse_wd(nb, bc, bc, C5_K, gen).to(DEV, torch.bfloat16)
+        tag = f"bf16 B={bc} D={dc} body={layer_body(bc, True)}"
+        out = gated_block_layer(xc, kc, pc, wc, fc, compute_bf16=True)
+        agree(f"K4a gated_block_layer {tag}", out,
+              gated_block_layer_reference(xc, kc, pc, wc, fc, compute_bf16=True), torch.bfloat16)
+        out_b, rsum, rcnt = gated_block_layer_with_sig(xc, kc, pc, wc, fc, *sc, compute_bf16=True,
+                                                       sig_eps=gcfg.eps)
+        rs6, rc6 = block_gate_signature_ln_x(out, pc, *sc, eps=gcfg.eps, compute_bf16=True)
+        same = torch.equal(out_b, out) and torch.equal(rsum, rs6) and torch.equal(rcnt, rc6)
+        say("agree", name=f"K4b = K4a then K6c, bitwise {tag}", ok=same)
+        if not same:
+            raise AssertionError("K4b disagrees bitwise with K4a followed by K6c")
     # control: f32 products where the signature takes bf16 ones
     expect_rejected("K6c with float32 instead of bf16 products", lambda: agree_signature(
         "control: signature with float32 products",
@@ -826,9 +891,10 @@ def config5_report(c5: dict, gparams, gcfg) -> list:
     k4a = lambda: gated_block_layer(x0, keep0, pad, wd, folded, compute_bf16=True)  # noqa: E731
     k4a_ref = lambda: gated_block_layer_reference(  # noqa: E731
         x0, keep0, pad, wd, folded, compute_bf16=True)
+    body = {"body": layer_body(b, True)}
     rows.append(("gated_block_layer", k4a, k4a_ref,
                  _agree_as(bf16),
-                 bound(layer_bytes, {bf16: layer_ops}), {}))
+                 bound(layer_bytes, {bf16: layer_ops}), dict(body)))
     k4b = lambda: gated_block_layer_with_sig(  # noqa: E731
         x0, keep0, pad, wd, folded, *sig, compute_bf16=True, sig_eps=gcfg.eps)
     k4b_ref = lambda: gated_block_layer_with_sig_reference(  # noqa: E731
@@ -836,7 +902,8 @@ def config5_report(c5: dict, gparams, gcfg) -> list:
     rows.append(("gated_block_layer_with_sig", k4b, k4b_ref,
                  lambda name, got, want: agree_layer_with_sig(name, got, want, pad, sig, bf16,
                                                               gcfg.eps),
-                 bound(layer_bytes + nbytes(*sig) + sig_out, {bf16: layer_ops + sig_ops}), {}))
+                 bound(layer_bytes + nbytes(*sig) + sig_out, {bf16: layer_ops + sig_ops}),
+                 dict(body)))
     k6c = lambda: block_gate_signature_ln_x(x0, pad, A0, *ln0, eps=gcfg.eps,  # noqa: E731
                                             compute_bf16=True)
     k6c_ref = lambda: block_gate_signature_ln_x_reference(  # noqa: E731
@@ -1477,7 +1544,6 @@ def serve_report(rr: dict, sp: dict) -> list:
              _agree_as(f32), bound(nbytes(q, pool) + nbytes(q), k8_ops),
              {"shape": f"B={b}, M=ef={m}, D={d}, k = v = the pool",
               "bound_ms_as_passed": bound(nbytes(q, pool, pool) + nbytes(q), k8_ops)[0],
-              "plain_iters": 10,
               "library": lambda: F.scaled_dot_product_attention(
                   q[:, None, None], pool[:, None], pool[:, None])[:, 0, 0],
               "library_call": "F.scaled_dot_product_attention(q[:, None, None], k[:, None], "
@@ -1491,7 +1557,6 @@ def serve_report(rr: dict, sp: dict) -> list:
                                        {f32: 2 * sp["edges"] * fd}),
                  {"shape": f"N=B={feats.shape[0]}, M={idx.shape[1]}, D={fd} (regular graph)",
                   "gather_bound_ms": n_rows * fd * 4 / PEAK_BYTES_PER_S * 1e3,
-                  "plain_iters": 10,
                   "library": lambda: F.embedding_bag(idx, feats, per_sample_weights=w,
                                                      mode="sum"),
                   "library_call": "F.embedding_bag(nbr, feat, per_sample_weights=w, "
@@ -1667,7 +1732,7 @@ def main() -> int:
             want = ref()
             err = check(f"{name} at main-path shapes", fn(), want)
             ms = time_ms(fn, iters=10)
-            plain_ms = time_ms(ref, iters=extra.pop("plain_iters", 2), warmup=1)
+            plain_ms = time_ms(ref, iters=10, warmup=1)
             # the one PyTorch call that computes the same function, where
             # there is one: timed as a yardstick, never called by the port
             library = extra.pop("library", None)

@@ -48,7 +48,7 @@ SIGNATURES = {
         "mincut_gate_block_from_x": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
     },
     "gated_block_layer": {
-        "gated_block_layer": [_P] * 12 + [_I] * 9 + [_F, _F, _P],
+        "gated_block_layer": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
     },
     "gated_block_mha": {
         "gated_block_mha_fwd": [_P] * 7 + [_I] * 7 + [_P],
@@ -90,9 +90,11 @@ def log_path(name: str) -> Path:
     return library_path(name).with_suffix(".log")
 
 
-def build(names=SOURCES) -> float:
+def build(names=SOURCES) -> dict[str, float]:
     """Compile every library in `names` that is not built yet, one nvcc per
-    source, all started together. Returns the seconds it took."""
+    source, all started together. Returns each compiled source's seconds
+    (from the common start to its nvcc's exit) and the whole build's
+    under "total"."""
     t0 = time.perf_counter()
     jobs = []
     for name in names:
@@ -105,17 +107,23 @@ def build(names=SOURCES) -> float:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         jobs.append((name, out, tmp, log,
                      subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, out, tmp, log, proc in jobs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        else:
-            failed.append(f"{name} (nvcc rc={rc}):\n{log_path(name).read_text()[-4000:]}")
+    failed, seconds = [], {}
+    while len(seconds) < len(jobs):
+        for name, out, tmp, log, proc in jobs:
+            if name in seconds or proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            log.close()
+            if proc.returncode == 0:
+                os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+            else:
+                failed.append(f"{name} (nvcc rc={proc.returncode}):\n"
+                              f"{log_path(name).read_text()[-4000:]}")
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t0
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -41,15 +41,22 @@ def flash_neighbor_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torc
 
 def flash_neighbor_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              mask: torch.Tensor | None = None) -> torch.Tensor:
-    """q [B, D], k and v [B, M, D], mask [B, M] or None (every key valid),
-    all float32 and contiguous, D in WIDTHS -> out [B, D] float32. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    """q [B, D], k and v [B, M, D] float32 or bfloat16 (bf16 is widened to
+    float32 for the float32 kernel), mask [B, M] of any dtype or None
+    (every key valid; a key counts where mask > 0, as the JAX function
+    casts the mask to float32), contiguous, D in WIDTHS -> out [B, D]
+    float32. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    q, k, v = (t.float() if t.dtype == torch.bfloat16 else t for t in (q, k, v))
+    if mask is not None:
+        mask = mask.to(torch.float32)
     if q.device.type == "cpu":
         return flash_neighbor_attention_reference(q, k, v, mask)
     args = (q, k, v) if mask is None else (q, k, v, mask)
     _lib.require(q.device.type == "cuda", f"unsupported device {q.device}")
     _lib.require(all(t.device == q.device for t in args), "inputs on different devices")
-    _lib.require(all(t.dtype == torch.float32 for t in args), "inputs must be float32")
+    _lib.require(all(t.dtype == torch.float32 for t in args),
+                 "q, k and v must be float32 or bfloat16")
     _lib.require(all(t.is_contiguous() for t in args), "inputs must be contiguous")
     _lib.require(k.dim() == 3 and tuple(v.shape) == tuple(k.shape)
                  and tuple(q.shape) == (k.shape[0], k.shape[2])

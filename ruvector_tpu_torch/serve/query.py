@@ -77,7 +77,7 @@ class QueryEngine:
         self.gnn_params = gnn_params or []
         self.gnn_cfgs = gnn_cfgs or []
         self._gnn_cache: torch.Tensor | None = None
-        self._host: tuple | None = None              # host copy of the graph
+        self._host: tuple | None = None   # (graph, host copy of its arrays)
 
     def _gnn_embeddings(self, depth: int) -> torch.Tensor:
         """Run the GNN stack over all nodes once and cache the result. The
@@ -93,6 +93,7 @@ class QueryEngine:
 
     def invalidate_cache(self):
         self._gnn_cache = None
+        self._host = None
 
     def _sims(self, q: torch.Tensor) -> torch.Tensor:
         return pairwise_cosine(q[None, :], self.features)[0]
@@ -145,11 +146,14 @@ class QueryEngine:
         raise ValueError(f"unknown mode {query.mode}")
 
     def _host_graph(self):
-        if self._host is None:
-            g = self.graph
-            self._host = (g.nbr_idx.cpu().numpy(), g.nbr_mask.cpu().numpy() > 0,
-                          g.edge_weight.cpu().numpy())
-        return self._host
+        """The graph's arrays on the host for the subgraph walk, copied on
+        the first walk and again whenever `self.graph` is another object
+        (the JAX engine reads `self.graph` on every walk)."""
+        g = self.graph
+        if self._host is None or self._host[0] is not g:
+            self._host = (g, (g.nbr_idx.cpu().numpy(), g.nbr_mask.cpu().numpy() > 0,
+                              g.edge_weight.cpu().numpy()))
+        return self._host[1]
 
     def _khop(self, seeds: np.ndarray, depth: int) -> set[int]:
         nbr, mask, _ = self._host_graph()

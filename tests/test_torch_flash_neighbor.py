@@ -71,6 +71,26 @@ def test_flash_neighbor_plain_version_matches_jax_kernel(name):
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm)), atol=K8_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("mask_dtype", [np.bool_, np.int32])
+def test_flash_neighbor_takes_bf16_inputs_and_any_mask_as_jax_does(mask_dtype):
+    """bf16 q, k and v and a bool or int mask, as JAX's function takes them
+    (it casts the mask to float32), against its Pallas kernel in interpret
+    mode on the same bf16 inputs. JAX forms the scores and weighted sums in
+    bf16 where the port widens to float32, so the bound is bf16's: 5e-2 max
+    and 5e-3 mean on outputs of order 1."""
+    q, k, v, mask = _qkv(7, 8, 256, 128, masked=True)
+    mask[3] = 0.0
+    mask = mask.astype(mask_dtype)
+    jq, jk, jv = (jnp.asarray(t, dtype=jnp.bfloat16) for t in (q, k, v))
+    want = np.asarray(jkernel(jq, jk, jv, jnp.asarray(mask), tile_b=8, block_m=128,
+                              interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(t).bfloat16() for t in (q, k, v))
+    got = flash_neighbor_attention(tq, tk, tv, torch.from_numpy(mask))
+    assert got.dtype == torch.float32 and float(got[3].abs().max()) == 0.0
+    err = np.abs(got.numpy() - want)
+    assert err.max() <= 5e-2 and err.mean() <= 5e-3
+
+
 def test_flash_neighbor_plain_version_with_a_fully_masked_row_among_others():
     q, k, v, mask = _qkv(5, 6, 40, 32, masked=True)
     mask[2] = 0.0

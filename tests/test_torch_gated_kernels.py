@@ -48,6 +48,8 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
     fold_gated_layer_params,
     gated_block_layer,
     gated_block_layer_with_sig,
+    layer_body,
+    weight_tiles,
 )
 
 F32_TOL = 2e-5
@@ -121,6 +123,32 @@ def test_fold_gated_layer_params_matches():
     np.testing.assert_allclose(Wvo.numpy(), np.asarray(jWvo), atol=1e-6)
     np.testing.assert_allclose(_fold_sig_params(tp[1], tc).numpy(),
                                np.asarray(jfold_sig(jp[1], jc)), atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_weight_tiles_are_the_jax_kernel_operands(d):
+    """The tensor-core body's bf16 [D, D] tiles are the JAX kernel's bf16
+    operands in its order of use: head h's columns of A_cat and Wvo_cat,
+    W_gnn, FFN chunk c's columns of Wi and rows of Wo."""
+    (jp, jc, _), _, _, _ = _setup(d=d, n=300)
+    jf = dict(zip(FOLDED_KEYS, (np.asarray(v) for v in jfold(jp[0], jc))))
+    heads, fm = jc.num_heads, jf["Wi"].shape[1] // d
+    tiles = weight_tiles({k: torch.from_numpy(v.copy()) for k, v in jf.items()}, heads, fm, d)
+    cols = lambda m, i: m[:, i * d:(i + 1) * d]  # noqa: E731
+    want = ([cols(jf["A_cat"], h) for h in range(heads)]
+            + [cols(jf["Wvo_cat"], h) for h in range(heads)] + [jf["Wg"]]
+            + [cols(jf["Wi"], c) for c in range(fm)]
+            + [jf["Wo"][c * d:(c + 1) * d] for c in range(fm)])
+    assert tiles.dtype == torch.bfloat16 and tiles.shape == (len(want), d, d)
+    for got, w in zip(tiles, want):
+        np.testing.assert_array_equal(
+            got.float().numpy(), np.asarray(jnp.asarray(w).astype(jnp.bfloat16), np.float32))
+
+
+def test_layer_body_follows_shape_and_compute_type():
+    assert [layer_body(b, True) for b in (1, 200, 256, 257, 512)] == \
+        ["tensor_core"] * 3 + ["block_gemm"] * 2
+    assert layer_body(256, False) == "block_gemm"
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])

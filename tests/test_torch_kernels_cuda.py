@@ -59,6 +59,7 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
     gated_block_layer,
     gated_block_layer_reference,
     gated_block_layer_with_sig,
+    layer_body,
 )
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (
     isolated_sink,
@@ -233,6 +234,38 @@ def test_gated_block_layer_kernels(card, xdt, compute_bf16):
     assert torch.equal(rsum, rs6) and torch.equal(rcnt, rc6)
     assert launch_counts()["gated_block_layer"] == 1
     assert launch_counts()["gated_block_layer_with_sig"] == 1
+
+
+def _within(got, want, tol=(5e-2, 5e-3)):
+    err = (got.float() - want.float()).abs()
+    return float(err.max()) <= tol[0] and float(err.mean()) <= tol[1]
+
+
+@pytest.mark.parametrize("b,d", [(256, 128), (200, 128), (256, 64), (100, 32), (320, 128)])
+def test_gated_block_layer_bf16_bodies(card, b, d):
+    """bf16 compute at 5e-2 max / 5e-3 mean against the plain version on
+    each body: the tensor-core body at B <= 256 (ragged B = 200 and 100 by
+    zero-filled rows and masked stores, D = 64 and 32), block_gemm at B in
+    (256, 512]; with a short tail block, a row that keeps nothing and a
+    degree-0 row. K4b is K4a then K6c bit for bit, and K4a without one
+    head's contribution (a control) must be rejected."""
+    x, pad, A, (gm, bt), (keep, wd), folded = _gated_inputs(card, torch.float32, b=b, d=d,
+                                                            seed=b + d)
+    wd[0, 7] = 0.0
+    wd = wd.to(torch.bfloat16)
+    assert layer_body(b, True) == ("tensor_core" if b <= 256 else "block_gemm")
+    out = gated_block_layer(x, keep, pad, wd, folded, compute_bf16=True)
+    want = gated_block_layer_reference(x, keep, pad, wd, folded, compute_bf16=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and _within(out, want)
+    out2, rsum, rcnt = gated_block_layer_with_sig(x, keep, pad, wd, folded, A, gm, bt,
+                                                  compute_bf16=True, sig_eps=0.01)
+    rs6, rc6 = block_gate_signature_ln_x(out, pad, A, gm, bt, eps=0.01, compute_bf16=True)
+    assert torch.equal(out2, out) and torch.equal(rsum, rs6) and torch.equal(rcnt, rc6)
+    no_head = dict(folded, Wvo_cat=folded["Wvo_cat"].clone())
+    no_head["Wvo_cat"][:, :d] = 0.0
+    assert not _within(gated_block_layer(x, keep, pad, wd, no_head, compute_bf16=True), want)
+    assert launch_counts()["gated_block_layer"] == 2
 
 
 @pytest.mark.parametrize("b", [64, 256])
@@ -427,6 +460,19 @@ def test_flash_neighbor_attention_kernel(card, b, m, d, masked):
         assert torch.equal(flash_neighbor_attention(q, k, v, mask), got)
 
 
+def test_flash_neighbor_attention_takes_bf16_and_bool_mask(card):
+    """What the JAX function takes: bf16 q, k and v (widened to float32 for
+    the kernel) and a bool mask (cast to float32), against the plain
+    version on the same inputs."""
+    q, k, v, mask = _k8_inputs(card, 64, 256, 128, True)
+    q, k, v, mask = q.bfloat16(), k.bfloat16(), v.bfloat16(), mask > 0
+    got = flash_neighbor_attention(q, k, v, mask)
+    assert got.dtype == torch.float32 and float(got[3].abs().max()) == 0.0
+    _close(got, flash_neighbor_attention_reference(q.float(), k.float(), v.float(),
+                                                   mask.float()), torch.float32)
+    assert launch_counts()["flash_neighbor_attention"] == 1
+
+
 @pytest.mark.parametrize("n,b,m,d", [(200, 64, 16, 128), (1000, 333, 17, 128),
                                      (500, 45, 40, 64), (300, 10, 3, 260)])
 def test_spmm_gather_kernel(card, n, b, m, d):
@@ -443,7 +489,7 @@ def test_spmm_gather_kernel(card, n, b, m, d):
 
 def test_k8_k9_wrappers_raise_on_unsupported_input(card):
     q, k, v, mask = _k8_inputs(card, 8, 20, 64, True)
-    for bad, match in (((q.bfloat16(), k, v, mask), "float32"),
+    for bad, match in (((q.half(), k, v, mask), "float32 or bfloat16"),
                        ((q, k.transpose(1, 2).contiguous().transpose(1, 2), v, mask),
                         "contiguous"),
                        ((q, k, v.cpu(), mask), "different devices"),

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from ruvector_tpu.graph import NeighborGraph as JGraph
 from ruvector_tpu.graph import build_knn_graph as jbuild_knn
 from ruvector_tpu.index.flat import FlatIndex as JFlat
 from ruvector_tpu.nn.ruvector_layer import RuvectorLayerConfig as JCfg
@@ -172,6 +173,38 @@ def test_query_engine_gnn_cache_is_not_keyed_by_depth():
     eng.invalidate_cache()
     eng.execute(RuvectorQuery(vector=feats[5], mode=QueryMode.NEURAL_SEARCH, gnn_depth=2))
     assert not torch.equal(cached, eng._gnn_cache)   # depth 1 cached, then depth 2
+
+
+def _ring_graphs():
+    """Two graphs on the same 4 nodes: g1 links 0-1 and 2-3, g2 links 0-2
+    and 1-3 (one neighbour each)."""
+    graphs = []
+    for nbr in ([[1], [0], [3], [2]], [[2], [3], [0], [1]]):
+        idx = np.asarray(nbr, np.int32)
+        mask = np.ones((4, 1), np.float32)
+        w = np.asarray([[0.5], [0.25], [0.75], [1.0]], np.float32)
+        graphs.append((JGraph(jnp.asarray(idx), jnp.asarray(mask), jnp.asarray(w)),
+                       NeighborGraph(_t(idx), _t(mask), _t(w))))
+    return graphs
+
+
+@pytest.mark.parametrize("invalidate", [False, True])
+def test_query_engine_walks_the_graph_it_holds_now(invalidate):
+    """After `engine.graph = g2` the subgraph mode walks g2, as the JAX
+    engine does, with or without invalidate_cache()."""
+    feats = np.eye(4, dtype=np.float32)
+    (jg1, g1), (jg2, g2) = _ring_graphs()
+    jeng, eng = JEngine(jnp.asarray(feats), jg1), QueryEngine(_t(feats), g1)
+    kw = dict(vector=feats[0], k=1, gnn_depth=1)
+    for jg, g in ((jg1, g1), (jg2, g2)):
+        jeng.graph, eng.graph = jg, g
+        if invalidate:
+            jeng.invalidate_cache()
+            eng.invalidate_cache()
+        want = jeng.execute(JQuery(mode=JMode.SUBGRAPH_EXTRACTION, **kw))
+        got = eng.execute(RuvectorQuery(mode=QueryMode.SUBGRAPH_EXTRACTION, **kw))
+        _same_result(got, want)
+        assert got.subgraph.nodes == ([0, 1] if g is g1 else [0, 2])
 
 
 def test_execute_query_one_shot():
