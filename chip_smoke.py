@@ -123,6 +123,7 @@ from ruvector_tpu_torch.ops.kernels.gated_block_attn import (  # noqa: E402
     head_concat,
     layer_norm_rows,
     matmul_f64,
+    mha_body,
     pack_keep,
     reduce_partials,
     unpack_keep,
@@ -133,7 +134,6 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (  # noqa: E402
     gated_block_layer_reference,
     gated_block_layer_with_sig,
     gated_block_layer_with_sig_reference,
-    layer_body,
 )
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (  # noqa: E402
     gate_from_logits,
@@ -179,7 +179,10 @@ N_NODES = 100_000   # bench.py's headline graph
 ITERS = 3           # layer applications on the main path, each on its own output
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# "tf32x3": float32-grade products on the tensor cores as three TF32
+# passes (495 TFLOP/s / 3), the least time this card needs for the float32
+# products of a kernel that runs them there (K5b's tensor-core body)
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32x3": 495e12 / 3}
 # tolerances against the plain versions on the same inputs. f32: sums of
 # up to T=1024 products in another order, on outputs of order 1.
 # bf16: the kernels round the softmax weights relative to a running max
@@ -187,6 +190,15 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # them relative to the row max; a weight of relative size 2^-9 may round
 # the other way, so outputs of order 1 move by up to a few 1e-3.
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (5e-2, 5e-3)}   # (max, mean)
+# K5b in bf16 compute against its plain version, relative to each
+# gradient's scale: both sides round the recompute of q, y and s alike and
+# take float32 products in the backward proper, so what is left is the
+# order of the sums and the tensor cores' float32 emulation (3xTF32). The
+# mean's limit lies between the 3xTF32 body's readings (at most 5.5e-6)
+# and single-pass TF32's (at least 4.8e-5, the "one_tf32" control); the
+# max, set by rare bf16 roundings of q that flip, tells the two apart less
+# well (up to 3.9e-4 against 5.6e-4). PERF.md section 6.
+TOL_F32_GRADE = (2e-3, 2e-5)
 SOURCES = {
     "block_dense_layer_fused": ("ruvector_tpu_torch/csrc/block_dense_attn.cu",
                                 "ruvector_tpu/ops/pallas/block_dense_attn.py:246"),
@@ -301,10 +313,11 @@ def agree_scaled(name: str, got: torch.Tensor, want: torch.Tensor, dtype: torch.
     return float(err.max())
 
 
-def agree_grads(name: str, got, want, dtype: torch.dtype) -> float:
+def agree_grads(name: str, got, want, dtype: torch.dtype,
+                tol: tuple[float, float] | None = None) -> float:
     """K5b's (dx, dA_cat, dWvo_cat) against its plain version, each
-    relative to its own scale."""
-    return max(agree_scaled(f"{name} {part}", g, w, dtype)
+    relative to its own scale (TOL[dtype] unless `tol` is given)."""
+    return max(agree_scaled(f"{name} {part}", g, w, dtype, tol)
                for part, g, w in zip(("dx", "dA_cat", "dWvo_cat"), got, want))
 
 
@@ -381,7 +394,8 @@ def ptxas_entries(text: str) -> list[dict]:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
         if m:
             # the layer's kernels by name and template arguments (mangled)
-            short = re.search(r"((?:tc_)?layer_kernelI\w*?)EvNS", m.group(1))
+            short = re.search(r"((?:tc_)?(?:layer|mha_fwd|mha_bwd)_kernelI\w*?)EvNS",
+                              m.group(1))
             name = short.group(1) if short else m.group(1)
             if not entries or entries[-1]["entry"] != name:
                 entries.append({"entry": name})
@@ -408,9 +422,11 @@ def phase_build() -> None:
     say("build_sources", **{name: round(t, 3) for name, t in seconds.items()})
     for line in spills[:8]:
         print("  ptxas:", line, flush=True)
-    # the fused layer's instances: the tensor-core body and block_gemm's
-    for e in ptxas_entries(_lib.log_path("gated_block_layer").read_text()):
-        say("build_ptxas", source="gated_block_layer", **e)
+    # the fused layer's and the gated MHA's instances: the tensor-core
+    # bodies and block_gemm's
+    for source in ("gated_block_layer", "gated_block_mha"):
+        for e in ptxas_entries(_lib.log_path(source).read_text()):
+            say("build_ptxas", source=source, **e)
 
 
 def _sparse_wd(nb, b, t, per_row, gen):
@@ -623,7 +639,7 @@ def phase_gated_parity(gparams, gcfg) -> None:
         kc[0, 5] = False
         kc = pack_keep(kc).to(DEV)
         wc = _sparse_wd(nb, bc, bc, C5_K, gen).to(DEV, torch.bfloat16)
-        tag = f"bf16 B={bc} D={dc} body={layer_body(bc, True)}"
+        tag = f"bf16 B={bc} D={dc} body={mha_body(bc, True)}"
         out = gated_block_layer(xc, kc, pc, wc, fc, compute_bf16=True)
         agree(f"K4a gated_block_layer {tag}", out,
               gated_block_layer_reference(xc, kc, pc, wc, fc, compute_bf16=True), torch.bfloat16)
@@ -671,8 +687,13 @@ def phase_train_parity(gparams, gcfg) -> None:
     """K5a, K5b, K6a and K6b against their plain versions at config 5's
     widths (D=128, 4 heads, B=256), with a short tail block (pad rows), a
     sparse keep mask with a row that keeps nothing, in f32 and bf16
-    compute; and the control: K5b's dA reduced without partition 0's
-    partial must fail the dA check."""
+    compute, and in bf16 at the halo layout's B = 240 (the tensor-core
+    bodies, padded to 256) and at B = 320 (block_gemm's bf16 bodies). The
+    bf16 tensor-core K5b is also held to TOL_F32_GRADE at B = 256 and 240.
+    Controls that must fail: K5b's dA reduced without partition 0's
+    partial; two faults planted in K5b's tensor-core body, head 0's
+    dq A_0^T left out of dX, and single-pass TF32 in place of 3xTF32
+    (against TOL_F32_GRADE)."""
     gen = torch.Generator().manual_seed(2)
     nb, b, d = 3, C5_BLOCK, gcfg.dim
     h = torch.randn(nb, b, d, generator=gen).to(DEV)
@@ -691,10 +712,10 @@ def phase_train_parity(gparams, gcfg) -> None:
     for cbf in (False, True):
         cdt, tag = (torch.bfloat16, "bf16") if cbf else (torch.float32, "f32")
         args = (h, keep, pad, A_cat, Wvo_cat)
-        agree(f"K5a gated_block_attention_fwd B={b} {tag}",
+        agree(f"K5a gated_block_attention_fwd B={b} {tag} body={mha_body(b, cbf)}",
               gated_block_attention_fwd(*args, compute_bf16=cbf),
               gated_block_attention_fwd_reference(*args, compute_bf16=cbf), cdt)
-        agree_grads(f"K5b gated_block_attention_bwd B={b} {tag}",
+        agree_grads(f"K5b gated_block_attention_bwd B={b} {tag} body={mha_body(b, cbf)}",
                     gated_block_attention_bwd(*args, g, compute_bf16=cbf),
                     gated_block_attention_bwd_reference(*args, g, compute_bf16=cbf), cdt)
         agree_rows(f"K6b block_gate_signature_x {tag}",
@@ -706,6 +727,47 @@ def phase_train_parity(gparams, gcfg) -> None:
         agree_rows(f"K6a block_gate_signature q/k {tag}",
                    block_gate_signature(q, k, pad, eps=gcfg.eps, scale=scale),
                    block_gate_signature_reference(q, k, pad, eps=gcfg.eps, scale=scale))
+    # bf16 at the halo layout's B = 240 (padded to 256 on the tensor cores)
+    # and at B = 320 (block_gemm's bf16 bodies); the rows of B = 320 past
+    # 256 are new draws
+    h320 = torch.cat([h, torch.randn(nb, 64, d, generator=gen).to(DEV)], 1)
+    g320 = torch.cat([g, torch.randn(nb, 64, d, generator=gen).to(DEV)], 1)
+    pad320 = torch.cat([pad, torch.ones(nb, 64, device=DEV)], 1)
+    pad320[-1, 200:] = 0.0
+    for bs in (H_BLOCK, 320):
+        kb = torch.rand(nb, bs, bs, generator=gen) < 0.3
+        kb[0, 5] = False
+        args_b = (h320[:, :bs].contiguous(), pack_keep(kb).to(DEV),
+                  pad320[:, :bs].contiguous(), A_cat, Wvo_cat)
+        gb = g320[:, :bs].contiguous()
+        tag = f"B={bs} bf16 body={mha_body(bs, True)}"
+        agree(f"K5a gated_block_attention_fwd {tag}",
+              gated_block_attention_fwd(*args_b, compute_bf16=True),
+              gated_block_attention_fwd_reference(*args_b, compute_bf16=True), torch.bfloat16)
+        got = gated_block_attention_bwd(*args_b, gb, compute_bf16=True)
+        want = gated_block_attention_bwd_reference(*args_b, gb, compute_bf16=True)
+        agree_grads(f"K5b gated_block_attention_bwd {tag}", got, want, torch.bfloat16)
+        if mha_body(bs, True) == "tensor_core":
+            agree_grads(f"K5b gated_block_attention_bwd float32 grade {tag}", got, want,
+                        torch.bfloat16, TOL_F32_GRADE)
+    # the tensor-core K5b at B = 256: float32 grade, and two planted faults
+    args = (h, keep, pad, A_cat, Wvo_cat)
+    want = gated_block_attention_bwd_reference(*args, g, compute_bf16=True)
+    agree_grads(f"K5b gated_block_attention_bwd float32 grade B={b} body={mha_body(b, True)}",
+                gated_block_attention_bwd(*args, g, compute_bf16=True), want, torch.bfloat16,
+                TOL_F32_GRADE)
+
+    def variant(name):
+        dx, dA_p, dW_p = gated_block_attention_bwd_partials(*args, g, compute_bf16=True,
+                                                            variant=name)
+        return dx, reduce_partials(dA_p), reduce_partials(dW_p)
+
+    expect_rejected("K5b with head 0's dq A_0^T left out of dX", lambda: agree_grads(
+        "control: K5b body without head 0's dq A_0^T in dX", variant("no_dq_a0"), want,
+        torch.bfloat16))
+    expect_rejected("K5b with single-pass TF32 products", lambda: agree_grads(
+        "control: K5b body with single-pass TF32, float32 grade", variant("one_tf32"), want,
+        torch.bfloat16, TOL_F32_GRADE))
     # control: one partition's dA partial left out of the reduction (with
     # nB = 3 partitions each block of the grid holds exactly one)
     dx, dA_parts, _ = gated_block_attention_bwd_partials(h, keep, pad, A_cat, Wvo_cat, g,
@@ -891,7 +953,7 @@ def config5_report(c5: dict, gparams, gcfg) -> list:
     k4a = lambda: gated_block_layer(x0, keep0, pad, wd, folded, compute_bf16=True)  # noqa: E731
     k4a_ref = lambda: gated_block_layer_reference(  # noqa: E731
         x0, keep0, pad, wd, folded, compute_bf16=True)
-    body = {"body": layer_body(b, True)}
+    body = {"body": mha_body(b, True)}
     rows.append(("gated_block_layer", k4a, k4a_ref,
                  _agree_as(bf16),
                  bound(layer_bytes, {bf16: layer_ops}), dict(body)))
@@ -1204,14 +1266,16 @@ def train_report(c5: dict, halo: dict, gparams, gcfg) -> list:
          lambda: gated_block_attention_fwd(*args, compute_bf16=True),
          lambda: gated_block_attention_fwd_reference(*args, compute_bf16=True),
          _agree_as(bf16),
-         bound(nbytes(*args) + nbytes(h0), {bf16: 2 * n * hh * (2 * d + 2 * b) * d}), {}),
+         bound(nbytes(*args) + nbytes(h0), {bf16: 2 * n * hh * (2 * d + 2 * b) * d}),
+         {"body": mha_body(b, True)}),
         ("gated_block_attention_bwd",
          lambda: gated_block_attention_bwd(*args, g, compute_bf16=True),
          lambda: gated_block_attention_bwd_reference(*args, g, compute_bf16=True),
          lambda name, got, want: agree_grads(name, got, want, bf16),
          bound(nbytes(*args, g) + nbytes(h0, A_cat, Wvo_cat),
-               {bf16: 2 * n * hh * (2 * d + b) * d, f32: 2 * n * hh * (4 * d + 4 * b) * d}),
-         {})]
+               {bf16: 2 * n * hh * (2 * d + b) * d,
+                "tf32x3": 2 * n * hh * (4 * d + 4 * b) * d}),
+         {"body": mha_body(b, True)})]
     hx, hpad = halo["h"], halo["pad"]
     hn, hb = hx.shape[0] * hx.shape[1], hx.shape[1]
     A_sig = gated._fold_sig_params(p, gcfg)

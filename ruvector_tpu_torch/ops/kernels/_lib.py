@@ -51,8 +51,9 @@ SIGNATURES = {
         "gated_block_layer": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
     },
     "gated_block_mha": {
-        "gated_block_mha_fwd": [_P] * 7 + [_I] * 7 + [_P],
-        "gated_block_mha_bwd": [_P] * 10 + [_I] * 7 + [_P],
+        "gated_block_mha_fwd": [_P] * 8 + [_I] * 7 + [_P],
+        "gated_block_mha_bwd": [_P] * 11 + [_I] * 8 + [_P],
+        "gated_block_mha_scratch_floats": [_I] * 5,
         "reduce_partials": [_P] + [_I] * 2 + [_P, _P],
     },
     "flash_neighbor": {

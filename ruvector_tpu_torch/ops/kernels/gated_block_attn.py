@@ -376,8 +376,30 @@ def gated_block_attention_bwd_reference(x, keep_packed, pad, A_cat, Wvo_cat, g, 
     return dX.to(x.dtype), dA, dW
 
 
-MHA_FWD_CTAS_PER_SM = 2
+TC_MAX_B = 256   # the largest partition of the tensor-core bodies (kTcMaxB, gated_tc.cuh)
+MHA_FWD_CTAS_PER_SM = {"tensor_core": 1, "block_gemm": 2}
 MHA_BWD_CTAS_PER_SM = 1
+
+
+def mha_body(b: int, compute_bf16: bool) -> str:
+    """Which body of K5a/K5b runs a partition of b rows: "tensor_core"
+    (bf16 compute, b <= TC_MAX_B) or "block_gemm" (float32 compute, whose
+    1e-4 tolerance single-pass TF32 would break, and b in (256, 512],
+    whose rows do not fit in shared memory)."""
+    return "tensor_core" if compute_bf16 and b <= TC_MAX_B else "block_gemm"
+
+
+def head_tiles(m: torch.Tensor, d: int) -> torch.Tensor:
+    """[D, n*D] with n [in, out] blocks side by side -> [n, D, D]."""
+    return m.reshape(d, -1, d).permute(1, 0, 2)
+
+
+def mha_tiles(A_cat: torch.Tensor, Wvo_cat: torch.Tensor, d: int) -> torch.Tensor:
+    """The tensor-core bodies' weights: bf16 [2H, D, D] tiles A_0..A_{H-1},
+    Wvo_0..Wvo_{H-1}, each [in, out] and rounded to nearest even as a bf16
+    product's operand."""
+    return torch.cat([head_tiles(A_cat, d), head_tiles(Wvo_cat, d)]).to(
+        torch.bfloat16).contiguous()
 
 
 def _check_mha(name, x, keep_packed, pad, A_cat, Wvo_cat, g=None):
@@ -405,7 +427,8 @@ def gated_block_attention_fwd(x, keep_packed, pad, A_cat, Wvo_cat, *, compute_bf
     float32, A_cat/Wvo_cat [D, H*D] float32, the heads' A_h = Wq_h Wk_h^T /
     sqrt(dh) and Wvo_h = Wv_h Wo_h side by side (head_concat). Returns
     [nB, B, D] in x's dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel.
+    tensors launch the kernel, whose body follows the shape: bf16 compute
+    at B <= 256 on the tensor cores, else block_gemm (`mha_body`).
     """
     if x.device.type == "cpu":
         return gated_block_attention_fwd_reference(x, keep_packed, pad, A_cat, Wvo_cat,
@@ -416,19 +439,38 @@ def gated_block_attention_fwd(x, keep_packed, pad, A_cat, Wvo_cat, *, compute_bf
     out = torch.empty_like(x)
     if nb * b == 0:
         return out
-    grid = persistent_grid(x.device, nb, MHA_FWD_CTAS_PER_SM)
-    scratch = torch.empty(grid * (4 * b * d + b * b + b), dtype=torch.float32, device=x.device)
+    body = mha_body(b, compute_bf16)
+    grid = persistent_grid(x.device, nb, MHA_FWD_CTAS_PER_SM[body])
+    tiles = mha_tiles(A_cat, Wvo_cat, d) if body == "tensor_core" else None
     lib = _lib.load("gated_block_mha")
+    scratch = _mha_scratch(lib, True, body, x, grid)
     rc = lib.gated_block_mha_fwd(
         x.data_ptr(), keep_packed.data_ptr(), pad.data_ptr(), A_cat.data_ptr(),
-        Wvo_cat.data_ptr(), out.data_ptr(), scratch.data_ptr(), nb, b, d, A_cat.shape[1] // d,
-        grid, int(x.dtype == torch.bfloat16), int(compute_bf16), _lib.stream_handle(x))
+        Wvo_cat.data_ptr(), None if tiles is None else tiles.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), nb, b, d, A_cat.shape[1] // d, grid,
+        int(x.dtype == torch.bfloat16), int(compute_bf16), _lib.stream_handle(x))
     gated_block_attention_fwd.launches += 1
     _lib.check(lib, rc, name)
     return out
 
 
 gated_block_attention_fwd.launches = 0
+
+
+def _mha_scratch(lib, fwd: bool, body: str, x: torch.Tensor, grid: int) -> torch.Tensor:
+    """The float32 scratch of K5a (fwd) or K5b: grid times the floats each
+    block of `body` owns, as the kernel source counts them."""
+    _, b, d = x.shape
+    per_block = lib.gated_block_mha_scratch_floats(int(fwd), int(body == "tensor_core"), b, d,
+                                                   int(x.dtype == torch.bfloat16))
+    _lib.require(per_block > 0, f"gated_block_mha: no {body} body for B={b}, D={d}")
+    return torch.empty(grid * per_block, dtype=torch.float32, device=x.device)
+
+
+# K5b's test-only variants of the tensor-core body (BwdVariant,
+# csrc/gated_block_mha.cu), faults that the card tests and chip_smoke.py's
+# controls must reject; built for D = 128 on float32 x only
+MHA_BWD_VARIANTS = {"exact": 0, "one_tf32": 1, "no_dq_a0": 2}
 
 
 def reduce_partials(parts: torch.Tensor) -> torch.Tensor:
@@ -446,10 +488,12 @@ def reduce_partials(parts: torch.Tensor) -> torch.Tensor:
 
 
 def gated_block_attention_bwd_partials(x, keep_packed, pad, A_cat, Wvo_cat, g, *,
-                                       compute_bf16: bool):
+                                       compute_bf16: bool, variant: str = "exact"):
     """K5b's first pass on the card: (dx, dA partials, dWvo partials), the
     partials [C, D, H*D] float32 with one slice per block of the
-    persistent grid (block c holds partitions c, c + C, ...)."""
+    persistent grid (block c holds partitions c, c + C, ...). `variant`
+    other than "exact" runs a fault planted in the tensor-core body
+    (MHA_BWD_VARIANTS), for controls only."""
     name = "gated_block_attention_bwd"
     _check_mha(name, x, keep_packed, pad, A_cat, Wvo_cat, g)
     nb, b, d = x.shape
@@ -459,14 +503,22 @@ def gated_block_attention_bwd_partials(x, keep_packed, pad, A_cat, Wvo_cat, g, *
     dW_parts = torch.zeros_like(dA_parts)
     if nb * b == 0:
         return dx, dA_parts, dW_parts
-    scratch = torch.empty(grid * (7 * b * d + 2 * b * b + b), dtype=torch.float32,
-                          device=x.device)
+    body = mha_body(b, compute_bf16)
+    _lib.require(variant in MHA_BWD_VARIANTS
+                 and (variant == "exact" or (body == "tensor_core" and d == 128
+                                             and x.dtype == torch.float32)),
+                 f"{name}: variant {variant!r} is built for the tensor-core body at D=128 "
+                 f"on float32 x only")
+    tiles = mha_tiles(A_cat, Wvo_cat, d) if body == "tensor_core" else None
     lib = _lib.load("gated_block_mha")
+    scratch = _mha_scratch(lib, False, body, x, grid)
     rc = lib.gated_block_mha_bwd(
         x.data_ptr(), keep_packed.data_ptr(), pad.data_ptr(), A_cat.data_ptr(),
-        Wvo_cat.data_ptr(), g.data_ptr(), dx.data_ptr(), dA_parts.data_ptr(),
+        Wvo_cat.data_ptr(), None if tiles is None else tiles.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), dA_parts.data_ptr(),
         dW_parts.data_ptr(), scratch.data_ptr(), nb, b, d, A_cat.shape[1] // d, grid,
-        int(x.dtype == torch.bfloat16), int(compute_bf16), _lib.stream_handle(x))
+        int(x.dtype == torch.bfloat16), int(compute_bf16), MHA_BWD_VARIANTS[variant],
+        _lib.stream_handle(x))
     gated_block_attention_bwd.launches += 1
     _lib.check(lib, rc, name)
     return dx, dA_parts, dW_parts

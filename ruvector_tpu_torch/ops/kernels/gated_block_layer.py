@@ -16,12 +16,12 @@ rounded through the IO dtype first. In bf16 compute mode every product
 takes bf16 operands with float32 sums; the residual stream stays float32
 inside and is rounded once at the output.
 
-The kernel has two bodies, chosen here on shape and compute type
-(`layer_body`): bf16 compute at B <= 256 runs every product on the tensor
-cores (mma.sync) with the partition's operands in shared memory, taking
-the weights as bf16 [D, D] tiles (`weight_tiles`); float32 compute, and
-bf16 at B in (256, 512], whose rows and weight tiles do not fit in
-shared memory, run the float32-FMA block_gemm body. The wrappers are forward-only
+The kernel has two bodies, chosen here on shape and compute type by the
+gated MHA's rule (`mha_body`): bf16 compute at B <= 256 runs every
+product on the tensor cores (mma.sync) with the partition's operands in
+shared memory, taking the weights as bf16 [D, D] tiles (`weight_tiles`);
+float32 compute, and bf16 at B in (256, 512], whose rows and weight tiles
+do not fit in shared memory, run the float32-FMA block_gemm body. The wrappers are forward-only
 (they raise on inputs that require grad); the fused layer's gradient is
 graph_transformer/gated.py's autograd Function, whose backward recomputes
 the sublayer composition with the gated MHA kernels (K5a/K5b) inside, as
@@ -42,9 +42,11 @@ from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     fold_gated_attention_params,
     gated_mha_reference,
     head_concat,
+    head_tiles,
     keep_valid,
     keep_words,
     layer_norm_rows,
+    mha_body,
     persistent_grid,
     signature_rows,
 )
@@ -53,7 +55,6 @@ FOLDED_KEYS = ("A_cat", "Wvo_cat", "ln1_g", "ln1_b", "lng_g", "lng_b", "ln2_g", 
                "Wg", "bg", "Wi", "bi", "Wo", "bo")
 HEADS = (1, 2, 4, 8)
 LAYER_CTAS_PER_SM = {"tensor_core": 1, "block_gemm": 2}
-TC_MAX_B = 256   # the largest partition of the tensor-core body (kTcMaxB)
 
 
 def fold_gated_layer_params(p: dict, cfg) -> dict:
@@ -130,21 +131,12 @@ def _folded_shapes(heads: int, d: int, fm: int) -> dict:
             "Wi": (d, fm * d), "bi": (1, fm * d), "Wo": (fm * d, d), "bo": row}
 
 
-def layer_body(b: int, compute_bf16: bool) -> str:
-    """Which body of the kernel runs a partition of b rows: "tensor_core"
-    (bf16 compute, b <= TC_MAX_B) or "block_gemm"."""
-    return "tensor_core" if compute_bf16 and b <= TC_MAX_B else "block_gemm"
-
-
 def weight_tiles(folded: dict, heads: int, fm: int, d: int) -> torch.Tensor:
     """The tensor-core body's weights: bf16 [2H + 1 + 2F, D, D] tiles
     A_0..A_{H-1}, Wvo_0..Wvo_{H-1}, Wg, Wi_0..Wi_{F-1}, Wo_0..Wo_{F-1}, each
     [in, out] and rounded to nearest even as a bf16 product's operand."""
-    def heads_of(m, n):
-        return m.reshape(d, n, d).permute(1, 0, 2)
-
-    return torch.cat([heads_of(folded["A_cat"], heads), heads_of(folded["Wvo_cat"], heads),
-                      folded["Wg"][None], heads_of(folded["Wi"], fm),
+    return torch.cat([head_tiles(folded["A_cat"], d), head_tiles(folded["Wvo_cat"], d),
+                      folded["Wg"][None], head_tiles(folded["Wi"], d),
                       folded["Wo"].reshape(fm, d, d)]).to(torch.bfloat16).contiguous()
 
 
@@ -180,7 +172,7 @@ def _launch(wrapper, x, keep_packed, pad, wdense, folded, sig, *, ln_eps, comput
     rcnt = torch.empty_like(rsum)
     if nb * b == 0:
         return out, rsum, rcnt
-    body = layer_body(b, compute_bf16)
+    body = mha_body(b, compute_bf16)
     tiles = weight_tiles(folded, heads, fm, d) if body == "tensor_core" else None
     grid = persistent_grid(x.device, nb, LAYER_CTAS_PER_SM[body])
     scratch = torch.empty(grid * (5 * b * d + b * b + b), dtype=torch.float32,
@@ -216,8 +208,8 @@ def gated_block_layer(x, keep_packed, pad, wdense, folded, *, ln_eps: float = LN
     wdense [nB, B, B] normalized edge weights (float32 or bfloat16),
     folded: fold_gated_layer_params. Returns [nB, B, D] in x's dtype. CPU
     tensors take the plain version; CUDA tensors launch the kernel, whose
-    body follows the shape: bf16 compute at B <= 256 on the tensor cores,
-    float32 compute or B in (256, 512] on block_gemm (`layer_body`).
+    body follows the shape (`mha_body`): bf16 compute at B <= 256 on the
+    tensor cores, float32 compute or B in (256, 512] on block_gemm.
     """
     _forward_only(x, *folded.values())
     if x.device.type == "cpu":

@@ -15,6 +15,8 @@ bit for bit (the same LayerNorm order, float64 sums); the last two tests
 pin that contract here.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,8 +41,11 @@ from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     block_gate_signature_ln_x,
     fold_gated_attention_params,
+    head_concat,
     layer_norm_rows,
     matmul_f64,
+    mha_body,
+    mha_tiles,
     tree_sum,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
@@ -48,7 +53,6 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
     fold_gated_layer_params,
     gated_block_layer,
     gated_block_layer_with_sig,
-    layer_body,
     weight_tiles,
 )
 
@@ -146,9 +150,28 @@ def test_weight_tiles_are_the_jax_kernel_operands(d):
 
 
 def test_layer_body_follows_shape_and_compute_type():
-    assert [layer_body(b, True) for b in (1, 200, 256, 257, 512)] == \
+    # the fused layer's wrappers dispatch on the gated MHA's rule
+    layer_module = importlib.import_module("ruvector_tpu_torch.ops.kernels.gated_block_layer")
+    assert layer_module.mha_body is mha_body
+    assert [mha_body(b, True) for b in (1, 200, 256, 257, 512)] == \
         ["tensor_core"] * 3 + ["block_gemm"] * 2
-    assert layer_body(256, False) == "block_gemm"
+    assert mha_body(256, False) == "block_gemm"
+
+
+def test_mha_body_follows_shape_and_compute_type():
+    assert [mha_body(b, True) for b in (1, 48, 240, 256, 257, 512)] == \
+        ["tensor_core"] * 4 + ["block_gemm"] * 2
+    assert [mha_body(b, False) for b in (48, 256, 512)] == ["block_gemm"] * 3
+
+
+def test_mha_tiles_are_the_heads_rounded_to_bf16():
+    g = torch.Generator().manual_seed(3)
+    d, heads = 32, 3
+    A = torch.randn(heads, d, d, generator=g)
+    Wvo = torch.randn(heads, d, d, generator=g)
+    tiles = mha_tiles(head_concat(A), head_concat(Wvo), d)
+    assert tiles.dtype == torch.bfloat16 and tiles.shape == (2 * heads, d, d)
+    assert torch.equal(tiles, torch.cat([A, Wvo]).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])

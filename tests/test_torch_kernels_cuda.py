@@ -49,17 +49,19 @@ from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     block_gate_signature_x,
     block_gate_signature_x_reference,
     gated_block_attention_bwd,
+    gated_block_attention_bwd_partials,
     gated_block_attention_bwd_reference,
     gated_block_attention_fwd,
     gated_block_attention_fwd_reference,
+    mha_body,
     pack_keep,
+    reduce_partials,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import _folded_shapes as _gated_folded_shapes
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
     gated_block_layer,
     gated_block_layer_reference,
     gated_block_layer_with_sig,
-    layer_body,
 )
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (
     isolated_sink,
@@ -253,7 +255,7 @@ def test_gated_block_layer_bf16_bodies(card, b, d):
                                                             seed=b + d)
     wd[0, 7] = 0.0
     wd = wd.to(torch.bfloat16)
-    assert layer_body(b, True) == ("tensor_core" if b <= 256 else "block_gemm")
+    assert mha_body(b, True) == ("tensor_core" if b <= 256 else "block_gemm")
     out = gated_block_layer(x, keep, pad, wd, folded, compute_bf16=True)
     want = gated_block_layer_reference(x, keep, pad, wd, folded, compute_bf16=True)
     torch.cuda.synchronize()
@@ -296,16 +298,33 @@ def _rel_close(got, want, tol):
     assert float((got.float() - want.float()).abs().max()) <= tol * scale
 
 
-@pytest.mark.parametrize("b", [48, 256])
+def _rel_within(got, want, tol):
+    """max and mean |got - want| within tol = (max, mean) of want's
+    largest magnitude."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    scale = max(float(want.float().abs().max()), 1e-6)
+    err = (got.float() - want.float()).abs()
+    return float(err.max()) <= tol[0] * scale and float(err.mean()) <= tol[1] * scale
+
+
+@pytest.mark.parametrize("b,d", [(48, 128), (240, 128), (256, 128), (256, 64), (100, 32),
+                                 (320, 128)])
 @pytest.mark.parametrize("compute_bf16", [False, True])
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
-def test_gated_block_attention_kernels(card, xdt, compute_bf16, b):
-    """K5a and K5b against their plain versions: f32 1e-4 of each
-    tensor's scale (sums in another order), bf16 5e-2."""
-    x, pad, _, _, (keep, _), folded = _gated_inputs(card, xdt, b=b)
+def test_gated_block_attention_kernels(card, xdt, compute_bf16, b, d):
+    """K5a and K5b against their plain versions on each body (bf16 compute
+    at B <= 256 on the tensor cores, B = 240 padded to 256, B = 48 to 64
+    and B = 100 to 128, D = 128, 64 and 32; float32 compute, and bf16 at
+    B = 320, on block_gemm): f32 1e-4 of each tensor's scale (sums in
+    another order), bf16 5e-2; a short tail block and a row that keeps
+    nothing; K5b repeats bit for bit."""
+    x, pad, _, _, (keep, _), folded = _gated_inputs(card, xdt, b=b, d=d)
     A_cat, Wvo_cat = folded["A_cat"], folded["Wvo_cat"]
     g = torch.randn(x.shape, generator=torch.Generator().manual_seed(7)).to(card, xdt)
     tol = TOL[torch.bfloat16 if torch.bfloat16 in (xdt,) or compute_bf16 else torch.float32]
+    assert mha_body(b, compute_bf16) == ("tensor_core" if compute_bf16 and b <= 256
+                                         else "block_gemm")
     out = gated_block_attention_fwd(x, keep, pad, A_cat, Wvo_cat, compute_bf16=compute_bf16)
     assert out.dtype == xdt
     _rel_close(out, gated_block_attention_fwd_reference(x, keep, pad, A_cat, Wvo_cat,
@@ -321,6 +340,50 @@ def test_gated_block_attention_kernels(card, xdt, compute_bf16, b):
     assert all(torch.equal(a, r) for a, r in zip(got, again))
     counts = launch_counts()
     assert counts["gated_block_attention_fwd"] == 1 and counts["gated_block_attention_bwd"] == 2
+
+
+# K5b in bf16 compute against its plain version, (max, mean) of each
+# gradient's scale (chip_smoke.py's TOL_F32_GRADE): the mean's limit lies
+# between the 3xTF32 body's readings (at most 5.5e-6 here) and single-pass
+# TF32's (at least 4.8e-5); PERF.md section 6
+F32_GRADE = (2e-3, 2e-5)
+
+
+def _bwd_f32_grade_inputs(card, b):
+    x, pad, _, _, (keep, _), folded = _gated_inputs(card, torch.float32, b=b, seed=b)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(11)).to(card)
+    return x, keep, pad, folded["A_cat"], folded["Wvo_cat"], g
+
+
+@pytest.mark.parametrize("b", [240, 256])
+def test_gated_block_attention_bwd_is_float32_grade(card, b):
+    """bf16 compute on float32 x and cotangent: K5b's dx, dA_cat and
+    dWvo_cat within F32_GRADE of each tensor's scale. Both sides round the
+    recompute of q, y and s alike, so what is left is the order of the
+    sums and, on the tensor cores, the float32 products' emulation
+    (3xTF32)."""
+    args = _bwd_f32_grade_inputs(card, b)
+    got = gated_block_attention_bwd(*args, compute_bf16=True)
+    want = gated_block_attention_bwd_reference(*args, compute_bf16=True)
+    for a, w in zip(got, want):
+        assert _rel_within(a, w, F32_GRADE)
+    assert float(got[0][0, 5].abs().max()) > 0.0   # row 5 keeps nothing but is a key of others
+    assert float(got[0][-1, b - b // 3:].abs().max()) == 0.0   # pad rows get no gradient
+
+
+@pytest.mark.parametrize("variant,tol", [("one_tf32", F32_GRADE), ("no_dq_a0", (5e-2, 5e-3))])
+@pytest.mark.parametrize("b", [240, 256])
+def test_gated_block_attention_bwd_faults_are_rejected(card, b, variant, tol):
+    """Controls: K5b's tensor-core body with a planted fault disagrees with
+    the plain version. Single-pass TF32 in place of 3xTF32 misses
+    F32_GRADE; head 0's dq A_0^T left out of dX misses the bf16
+    tolerance."""
+    args = _bwd_f32_grade_inputs(card, b)
+    dx, dA_p, dW_p = gated_block_attention_bwd_partials(*args, compute_bf16=True,
+                                                        variant=variant)
+    got = (dx, reduce_partials(dA_p), reduce_partials(dW_p))
+    want = gated_block_attention_bwd_reference(*args, compute_bf16=True)
+    assert not all(_rel_within(a, w, tol) for a, w in zip(got, want))
 
 
 @pytest.mark.parametrize("compute_bf16", [False, True])
