@@ -126,6 +126,7 @@ from ruvector_tpu_torch.ops.kernels.gated_block_attn import (  # noqa: E402
     mha_body,
     pack_keep,
     reduce_partials,
+    sig_body,
     unpack_keep,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import (  # noqa: E402
@@ -136,10 +137,12 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (  # noqa: E402
     gated_block_layer_with_sig_reference,
 )
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (  # noqa: E402
+    gate_body,
     gate_from_logits,
     isolated_sink,
     mincut_gate_block_from_x,
     mincut_gate_block_from_x_reference,
+    two_hop_sink,
 )
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import (  # noqa: E402
     fused_neighbor_mix,
@@ -181,8 +184,13 @@ ITERS = 3           # layer applications on the main path, each on its own outpu
 PEAK_BYTES_PER_S = 3.35e12
 # "tf32x3": float32-grade products on the tensor cores as three TF32
 # passes (495 TFLOP/s / 3), the least time this card needs for the float32
-# products of a kernel that runs them there (K5b's tensor-core body)
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32x3": 495e12 / 3}
+# products of a kernel that runs them there (K5b's tensor-core body).
+# "f64": float64 sums on the float64 tensor cores (67 TFLOP/s), the rate
+# of the gate logits, whose products must be exact and whose sums float64
+# (K6c, K4b's signature, K7): bf16 tensor cores with float32 sums cannot
+# give the plain version's bits
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32x3": 495e12 / 3,
+                  "f64": 67e12}
 # tolerances against the plain versions on the same inputs. f32: sums of
 # up to T=1024 products in another order, on outputs of order 1.
 # bf16: the kernels round the softmax weights relative to a running max
@@ -394,7 +402,7 @@ def ptxas_entries(text: str) -> list[dict]:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
         if m:
             # the layer's kernels by name and template arguments (mangled)
-            short = re.search(r"((?:tc_)?(?:layer|mha_fwd|mha_bwd)_kernelI\w*?)EvNS",
+            short = re.search(r"((?:tc_)?(?:layer|mha_fwd|mha_bwd|signature|gate)_kernelI\w*?)EvNS",
                               m.group(1))
             name = short.group(1) if short else m.group(1)
             if not entries or entries[-1]["entry"] != name:
@@ -422,9 +430,10 @@ def phase_build() -> None:
     say("build_sources", **{name: round(t, 3) for name, t in seconds.items()})
     for line in spills[:8]:
         print("  ptxas:", line, flush=True)
-    # the fused layer's and the gated MHA's instances: the tensor-core
-    # bodies and block_gemm's
-    for source in ("gated_block_layer", "gated_block_mha"):
+    # the instances of the gated kernels: the tensor-core bodies and
+    # block_gemm's
+    for source in ("gated_block_layer", "gated_block_mha", "gated_block_attn",
+                   "mincut_gate_block"):
         for e in ptxas_entries(_lib.log_path(source).read_text()):
             say("build_ptxas", source=source, **e)
 
@@ -574,8 +583,11 @@ def phase_gated_parity(gparams, gcfg) -> None:
     a sparse keep mask with a row that keeps nothing, a degree-0 row, in
     f32 and bf16 compute; K4a/K4b in bf16 also at B=200, at D=64 and at
     B=320 (each body of the kernel), and a control that must be rejected
-    (K4a without one head); K7 on random partitions and on partitions
-    built so that the cut applies."""
+    (K4a without one head); K6c with a fault planted in its tensor-core
+    body (float32 sums), to be rejected; K7 on random partitions and on
+    partitions built so that the cut applies, its source side one or two
+    hops from s, and with a fault planted in its reachability (stopped
+    after one frontier), to be rejected."""
     gen = torch.Generator().manual_seed(1)
     nb, b, d = 3, C5_BLOCK, gcfg.dim
     x = torch.randn(nb, b, d, generator=gen).to(DEV)
@@ -655,6 +667,12 @@ def phase_gated_parity(gparams, gcfg) -> None:
         "control: signature with float32 products",
         block_gate_signature_ln_x_reference(x, pad, *sig, eps=gcfg.eps, compute_bf16=False),
         x, pad, sig, True, gcfg.eps))
+    # control: a fault planted in K6c's tensor-core body, float32 sums
+    expect_rejected("K6c with float32 instead of float64 sums", lambda: agree_signature(
+        f"control: K6c body={sig_body(b, True)} with float32 sums",
+        block_gate_signature_ln_x(x, pad, *sig, eps=gcfg.eps, compute_bf16=True,
+                                  variant="f32_acc"),
+        x, pad, sig, True, gcfg.eps))
     A0, ln0 = gated._fold_sig_params(p, gcfg), gated._ln_vectors(p["ln1"])
     xr = torch.randn(6, b, d, generator=gen).to(DEV)
     pad_r = torch.ones(6, b)
@@ -677,9 +695,25 @@ def phase_gated_parity(gparams, gcfg) -> None:
     agree_gate(f"K7 mincut_gate_block_from_x isolated sink B={b}", got,
                mincut_gate_block_from_x_reference(xs, ps, eye, **gate))
     applied = int(got[1][:, 2, 0].sum())
-    say("gate_cuts", partitions=4, applied=applied)
-    if applied != 4:
-        raise AssertionError("the isolated-sink partitions must all apply their cut")
+    # partitions whose cut reaches its source side in two hops, on the
+    # tensor-core logits (unit LN1), and a fault planted in K7: the cut's
+    # reachability stopped after its first frontier
+    two = dict(gate, ln=(torch.ones(d, device=DEV), torch.zeros(d, device=DEV)),
+               compute_bf16=True)
+    xt = two_hop_sink(4, b, d, 0.1, gcfg.eps).to(DEV)
+    got2 = mincut_gate_block_from_x(xt, ps, eye, **two)
+    want2 = mincut_gate_block_from_x_reference(xt, ps, eye, **two)
+    agree_gate(f"K7 mincut_gate_block_from_x two-hop sink B={b} "
+               f"body={gate_body(b, True, two['ln'])}", got2, want2)
+    applied2 = int(got2[1][:, 2, 0].sum())
+    say("gate_cuts", partitions=8, applied=applied + applied2)
+    if applied + applied2 != 8:
+        raise AssertionError("the isolated- and two-hop-sink partitions must apply their cut")
+    expect_rejected("K7 with the cut's reachability stopped after one frontier",
+                    lambda: agree_gate("control: K7 reachability after one frontier",
+                                       mincut_gate_block_from_x(
+                                           xt, ps, eye, variant="reach_one_frontier", **two),
+                                       want2))
     torch.cuda.synchronize()
 
 
@@ -964,7 +998,7 @@ def config5_report(c5: dict, gparams, gcfg) -> list:
     rows.append(("gated_block_layer_with_sig", k4b, k4b_ref,
                  lambda name, got, want: agree_layer_with_sig(name, got, want, pad, sig, bf16,
                                                               gcfg.eps),
-                 bound(layer_bytes + nbytes(*sig) + sig_out, {bf16: layer_ops + sig_ops}),
+                 bound(layer_bytes + nbytes(*sig) + sig_out, {bf16: layer_ops, "f64": sig_ops}),
                  dict(body)))
     k6c = lambda: block_gate_signature_ln_x(x0, pad, A0, *ln0, eps=gcfg.eps,  # noqa: E731
                                             compute_bf16=True)
@@ -973,16 +1007,19 @@ def config5_report(c5: dict, gparams, gcfg) -> list:
     rows.append(("block_gate_signature_ln_x", k6c, k6c_ref,
                  lambda name, got, want: agree_signature(name, got, x0, pad, (A0, *ln0), True,
                                                          gcfg.eps),
-                 bound(nbytes(x0, pad, A0, *ln0) + sig_out, {bf16: sig_ops}), {}))
+                 bound(nbytes(x0, pad, A0, *ln0) + sig_out, {"f64": sig_ops}),
+                 {"body": sig_body(b, True)}))
 
     gate = dict(lam=gcfg.lam, eps=gcfg.eps, ln=ln0, compute_bf16=True)
     x_sel, pad_sel = c5["x_sel"], c5["pad_sel"]
 
     def gate_bound(x, pad_k, kp, stats):
-        """Logits (float32) plus ~10 B^2 operations per push-relabel round,
-        with this run's rounds (stats row 3)."""
-        ops = 2 * x.shape[0] * b * d * (b + d) + 10 * b * b * int(stats[:, 3, 0].sum())
-        return bound(nbytes(x, pad_k, A0, *ln0, kp, stats), {torch.float32: ops})
+        """Logits (exact products, float64 sums) plus ~10 B^2 float32
+        operations per push-relabel round, with this run's rounds (stats
+        row 3)."""
+        ops = {"f64": 2 * x.shape[0] * b * d * (b + d),
+               torch.float32: 10 * b * b * int(stats[:, 3, 0].sum())}
+        return bound(nbytes(x, pad_k, A0, *ln0, kp, stats), ops)
 
     k7 = lambda: mincut_gate_block_from_x(x_sel, pad_sel, A0, **gate)  # noqa: E731
     k7_ref = lambda: mincut_gate_block_from_x_reference(x_sel, pad_sel, A0, **gate)  # noqa: E731
@@ -997,8 +1034,11 @@ def config5_report(c5: dict, gparams, gcfg) -> list:
                   "ms_init_shape": time_ms(k7_init, iters=2, warmup=0),
                   "bound_ms_init_shape": init_bound_ms,
                   "init_shape": f"K={nb} partitions",
+                  "body": gate_body(b, True, ln0),
                   "rounds_step": int(step_out[1][:, 3, 0].sum()),
-                  "rounds_init": int(init_out[1][:, 3, 0].sum())}))
+                  "rounds_init": int(init_out[1][:, 3, 0].sum()),
+                  "rounds_max_step": int(step_out[1][:, 3, 0].max()),
+                  "rounds_max_init": int(init_out[1][:, 3, 0].max())}))
     return rows
 
 

@@ -12,22 +12,28 @@
 // K6c on the halo-free kernel route, K6b where B % 32 != 0, K6a nowhere
 // (the JAX package defines its caller but never calls it).
 //
-// What bounds it on an H100: the least work is reading x once (0.51 GB at
-// 1M nodes, 128-d float32) and 2 B D (B + D) bf16 products per partition
-// (0.1 TFLOP at 1M nodes; K6a 2 B B D), so by the numbers it is bound by
-// bytes (0.16 ms). This first version runs the products on the CUDA cores
-// with float64 sums (block_gemm; a sum of bf16 products is then exact, so
-// the counts match the plain versions' bit for bit), so it is bound by FMA
-// issue instead; tensor cores are later work.
+// What bounds it on an H100: reading x once (0.51 GB at 1M nodes, 128-d
+// float32, 0.16 ms) and 2 B D (B + D) products per partition (0.1 TFLOP
+// at 1M nodes; K6a 2 B B D). The products must be exact and their sums
+// float64, so that the counts match the plain versions' bit for bit;
+// bf16 tensor cores with float32 sums cannot give those bits, so the
+// operations bound it at the float64 tensor cores' 67 TFLOP/s (1.47 ms
+// at config 5's shape).
 //
 // Design: a persistent grid, one block of 256 threads per partition at a
-// time, the block's [B, D] normalized rows, [B, D] projected rows and
-// [B, B] logits in its slice of a global scratch buffer;
-// the reduction is one warp per row in a fixed order, so runs repeat bit
-// for bit. The same gate_signature code is the epilogue of the fused
-// layer with signature (gated_block_layer.cu), so both give the same bits.
+// time. K6c at bf16 compute and B <= 256 (tc_signature_kernel) keeps the
+// partition on chip: LN(x) as bf16 rows, A_sig^T and Q in shared memory,
+// the products on the float64 tensor cores (gated_f64tc.cuh), the row
+// sums taken from the registers. The other cases (K6c at float32 compute
+// or B > 256, K6b, K6a) run block_gemm with float64 FMA on the CUDA cores
+// and keep the block's [B, D] normalized rows, [B, D] projected rows and
+// [B, B] logits in its slice of a global scratch buffer. Each row's
+// reduction has a fixed order, so runs repeat bit for bit. block_gemm's
+// gate_signature is also the epilogue of the fused layer with signature
+// (gated_block_layer.cu): its float64 sums are exact, so it and the
+// tensor-core body give the same bits.
 
-#include "gated_common.cuh"
+#include "gated_f64tc.cuh"
 
 namespace {
 
@@ -84,6 +90,113 @@ __global__ void __launch_bounds__(kThreads) signature_kernel(const SigArgs a) {
   }
 }
 
+// K6c's float64 tensor-core body (bf16 compute, B <= 256): per partition
+// the block reads x once and writes LN(x), rounded to bf16, into H in
+// shared memory beside A_sig^T (bf16, staged once per block). Warp w owns
+// the 32-row strip [32 w, 32 w + 32): Q = H A_sig on the DMMAs (2x4 tiles
+// of 16x8 per pass), each value rounded once to float32, then to bf16, into
+// the warp's strip of Q in shared memory; then S = Q H^T, 32 columns a
+// pass, whose positive valid entries the lanes sum (float64) and count
+// while they are still in registers. Nothing but the row sums and counts
+// goes to global memory. F32ACC (a test-only fault) rounds every sum to
+// float32 as it goes.
+template <int D>
+constexpr size_t tc_sig_smem(int bp) {
+  return (size_t)(2 * bp * D + D * D) * sizeof(bf16) + (size_t)bp * sizeof(float);
+}
+
+template <int D, typename XT, bool F32ACC>
+__global__ void __launch_bounds__(kThreads) tc_signature_kernel(const SigArgs a) {
+  extern __shared__ uint4 smem_raw[];
+  const int b = a.b, bp = (b + 31) & ~31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16* H = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Q = H + (size_t)bp * D;
+  bf16* At = Q + (size_t)bp * D;
+  float* pad = reinterpret_cast<float*>(At + D * D);
+  for (int i = threadIdx.x; i < D * D; i += kThreads) {
+    const int n = i / D, k = i % D;
+    At[i] = __float2bfloat16(a.A_sig[(size_t)k * D + n]);
+  }
+  for (int k = blockIdx.x; k < a.nb; k += gridDim.x) {
+    __syncthreads();  // the previous partition's H and pad are no longer read
+    for (int i = threadIdx.x; i < bp; i += kThreads)
+      pad[i] = i < b ? a.pad[(size_t)k * b + i] : 0.f;
+    ln_rows_bf16<D>(static_cast<const XT*>(a.x) + (size_t)k * b * D, H, a.gamma, a.beta, b, bp,
+                    1e-5f);
+    const int r0 = 32 * warp;
+    if (r0 >= b) continue;
+    double acc[2][4][4];  // 2 x 4 tiles of 16x8: rows r0 + 16 i + 8 h + g
+    for (int n0 = 0; n0 < D; n0 += 32) {
+      zero_tiles(acc);
+      f64_mma_tiles<2, 4, F32ACC>(acc, H + (size_t)r0 * D, D, At + (size_t)n0 * D, D, D);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(Q + (size_t)(r0 + 16 * i + 8 * h + g) * D + n0 +
+                                               8 * j + 2 * t) =
+                __floats2bfloat162_rn((float)acc[i][j][2 * h], (float)acc[i][j][2 * h + 1]);
+    }
+    __syncwarp();
+    double rs[4] = {0.0, 0.0, 0.0, 0.0};  // rows r0 + 8 ri + g, ri = 2 i + h
+    float rc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < bp; c0 += 32) {
+      zero_tiles(acc);
+      f64_mma_tiles<2, 4, F32ACC>(acc, Q + (size_t)r0 * D, D, H + (size_t)c0 * D, D, D);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * j + 2 * t + e;
+          if (!(pad[c] > 0.f)) continue;
+#pragma unroll
+          for (int ri = 0; ri < 4; ++ri) {
+            const float v = (float)acc[ri / 2][j][2 * (ri % 2) + e];
+            if (v > a.eps) {
+              rs[ri] += v;
+              rc[ri] += 1.f;
+            }
+          }
+        }
+    }
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri) {
+      double s = rs[ri];
+      float c = rc[ri];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      c += __shfl_xor_sync(0xffffffffu, c, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      c += __shfl_xor_sync(0xffffffffu, c, 2);
+      const int r = r0 + 8 * ri + g;
+      if (t == 0 && r < b) {
+        const bool ok = pad[r] > 0.f;
+        a.rsum[(size_t)k * b + r] = ok ? (float)s : 0.f;
+        a.rcnt[(size_t)k * b + r] = ok ? c : 0.f;
+      }
+    }
+  }
+}
+
+template <int D, typename XT, bool F32ACC = false>
+int run_tc(const SigArgs& a, int grid, cudaStream_t s) {
+  auto kernel = tc_signature_kernel<D, XT, F32ACC>;
+  const size_t smem = tc_sig_smem<D>((a.b + 31) & ~31);
+  if (const int rc = allow_smem(kernel, smem)) return rc;
+  const int g = resident_grid(kernel, grid, smem);
+  kernel<<<g, kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+int run_tc_width(const SigArgs& a, int grid, cudaStream_t s) {
+  if (a.d == 32) return run_tc<32, XT>(a, grid, s);
+  if (a.d == 64) return run_tc<64, XT>(a, grid, s);
+  return run_tc<128, XT>(a, grid, s);
+}
+
 template <int MODE, typename XT, bool BF16>
 int run(const SigArgs& a, int grid, cudaStream_t s) {
   auto kernel = signature_kernel<MODE, XT, BF16>;
@@ -104,17 +217,28 @@ bool shape_ok(int b, int d) { return b >= 1 && b <= kMaxB && width_ok(d); }
 
 }  // namespace
 
+// K6c. tensor_core (bf16 compute, b <= 256, no scratch) takes the float64
+// tensor-core body, else block_gemm's; variant 1 (the tensor-core body at
+// D = 128 on float32 x only) is the test-only fault F32ACC.
 extern "C" int block_gate_signature_ln_x(const void* x, const void* pad, const void* A_sig,
                                          const void* gamma, const void* beta, void* rsum,
                                          void* rcnt, void* scratch, int nb, int b, int d,
-                                         int grid, int x_bf16, int compute_bf16, float eps,
+                                         int grid, int x_bf16, int compute_bf16,
+                                         int tensor_core, int variant, float eps,
                                          void* stream) {
   if (!shape_ok(b, d)) return (int)cudaErrorInvalidValue;
+  if (tensor_core && (!compute_bf16 || b > kDmmaMaxB)) return (int)cudaErrorInvalidValue;
+  if (variant != 0 && !(variant == 1 && tensor_core && d == 128 && !x_bf16))
+    return (int)cudaErrorInvalidValue;
   SigArgs a{x, nullptr, static_cast<const float*>(pad), static_cast<const float*>(A_sig),
             static_cast<const float*>(gamma), static_cast<const float*>(beta),
             static_cast<float*>(rsum), static_cast<float*>(rcnt),
             static_cast<float*>(scratch), nb, b, d, eps, 1.f};
-  return run_types<kLnX>(a, grid, x_bf16, compute_bf16, static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) return run_tc<128, float, true>(a, grid, s);
+  if (tensor_core)
+    return x_bf16 ? run_tc_width<__nv_bfloat16>(a, grid, s) : run_tc_width<float>(a, grid, s);
+  return run_types<kLnX>(a, grid, x_bf16, compute_bf16, s);
 }
 
 extern "C" int block_gate_signature_x(const void* x, const void* pad, const void* A_sig,

@@ -28,8 +28,9 @@
 //     forward and backward (K5a/K5b).
 //   * logits_of_rows and positive_row_sums: the gate signature's logits
 //     and per-row reduction; gate_signature (LN first) is the LN-folded
-//     signature (K6c), also the epilogue of the fused layer with signature
-//     (K4b), so both give the same bits on the same stream.
+//     signature of K6c's block_gemm body and the epilogue of the fused
+//     layer with signature (K4b). K6c's tensor-core body
+//     (gated_block_attn.cu, gated_f64tc.cuh) gives the same bits.
 
 #pragma once
 

@@ -40,12 +40,12 @@ SIGNATURES = {
         "block_dense_layer_fused": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
     },
     "gated_block_attn": {
-        "block_gate_signature_ln_x": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "block_gate_signature_ln_x": [_P] * 8 + [_I] * 8 + [_F, _P],
         "block_gate_signature_x": [_P] * 6 + [_I] * 6 + [_F, _P],
         "block_gate_signature": [_P] * 6 + [_I] * 5 + [_F, _F, _P],
     },
     "mincut_gate_block": {
-        "mincut_gate_block_from_x": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+        "mincut_gate_block_from_x": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
     },
     "gated_block_layer": {
         "gated_block_layer": [_P] * 13 + [_I] * 9 + [_F, _F, _P],

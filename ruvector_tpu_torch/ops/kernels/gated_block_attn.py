@@ -214,24 +214,39 @@ def persistent_grid(device: torch.device, nb: int, per_sm: int) -> int:
 
 
 SIG_CTAS_PER_SM = 2
+DMMA_MAX_B = 256  # the largest partition of the float64 tensor-core bodies (kDmmaMaxB)
+# K6c's test-only variants of the tensor-core body (csrc/gated_block_attn.cu),
+# faults that the card tests and chip_smoke.py's controls must reject; built
+# for D = 128 on float32 x only
+SIG_VARIANTS = {"exact": 0, "f32_acc": 1}
 
 
-def _signature_launch(wrapper, entry, x, pad, *args, extra=()):
-    """Allocates (rsum, rcnt) and the per-CTA scratch of a signature kernel
-    and launches `entry` (counting the launch on `wrapper`): its arguments
-    are x, pad, args, the outputs and scratch, nB, B, D, the grid, extra
-    and the stream."""
+def sig_body(b: int, compute_bf16: bool) -> str:
+    """Which body of K6c runs a partition of b rows: "tensor_core" (bf16
+    compute, b <= DMMA_MAX_B: the logits on the float64 tensor cores, the
+    partition's rows in shared memory) or "block_gemm" (float32 compute,
+    and b in (256, 512], whose bf16 rows and logits do not fit in shared
+    memory)."""
+    return "tensor_core" if compute_bf16 and b <= DMMA_MAX_B else "block_gemm"
+
+
+def _signature_launch(wrapper, entry, x, pad, *args, extra=(), scratch: bool = True):
+    """Allocates (rsum, rcnt) and, with `scratch`, the per-CTA scratch of a
+    signature kernel, and launches `entry` (counting the launch on
+    `wrapper`): its arguments are x, pad, args, the outputs and scratch,
+    nB, B, D, the grid, extra and the stream."""
     nb, b, d = x.shape
     rsum = torch.empty((nb, b), dtype=torch.float32, device=x.device)
     rcnt = torch.empty_like(rsum)
     if nb * b == 0:
         return rsum, rcnt
     grid = persistent_grid(x.device, nb, SIG_CTAS_PER_SM)
-    scratch = torch.empty(grid * (2 * b * d + b * b), dtype=torch.float32, device=x.device)
+    buf = (torch.empty(grid * (2 * b * d + b * b), dtype=torch.float32, device=x.device)
+           if scratch else None)
     lib = _lib.load("gated_block_attn")
     rc = getattr(lib, entry)(x.data_ptr(), pad.data_ptr(), *(t.data_ptr() for t in args),
-                             rsum.data_ptr(),
-                             rcnt.data_ptr(), scratch.data_ptr(), nb, b, d, grid, *extra,
+                             rsum.data_ptr(), rcnt.data_ptr(),
+                             None if buf is None else buf.data_ptr(), nb, b, d, grid, *extra,
                              _lib.stream_handle(x))
     wrapper.launches += 1
     _lib.check(lib, rc, entry)
@@ -239,7 +254,7 @@ def _signature_launch(wrapper, entry, x, pad, *args, extra=()):
 
 
 def block_gate_signature_ln_x(x, pad, A_sig, gamma, beta, *, eps: float,
-                              compute_bf16: bool):
+                              compute_bf16: bool, variant: str = "exact"):
     """Gate-signature reduction straight from the residual stream (K6c).
 
     x [nB, B, D] (float32 or bfloat16), pad [nB, B] float32, A_sig [D, D]
@@ -247,15 +262,26 @@ def block_gate_signature_ln_x(x, pad, A_sig, gamma, beta, *, eps: float,
     Per block: h = LN(x) (eps 1e-5), s = (h A_sig) h^T with compute-dtype
     operands, and per row the sum and count of s > eps over valid pairs.
     Returns (rsum, rcnt), float32 [nB, B] each. CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
+    plain version; CUDA tensors launch the kernel, whose body follows the
+    shape and compute type (`sig_body`). `variant` other than "exact" runs
+    a fault planted in the tensor-core body (SIG_VARIANTS), for controls
+    only.
     """
+    name = "block_gate_signature_ln_x"
+    _lib.require(variant in SIG_VARIANTS, f"{name}: unknown variant {variant!r}")
     if x.device.type == "cpu":
+        _lib.require(variant == "exact", f"{name}: variant {variant!r} runs on the card only")
         return block_gate_signature_ln_x_reference(x, pad, A_sig, gamma, beta, eps=eps,
                                                    compute_bf16=compute_bf16)
-    check_rows("block_gate_signature_ln_x", x, pad, (gamma, beta), (A_sig,))
-    return _signature_launch(block_gate_signature_ln_x, "block_gate_signature_ln_x", x, pad,
-                             A_sig, gamma, beta, extra=(int(x.dtype == torch.bfloat16),
-                                                        int(compute_bf16), eps))
+    check_rows(name, x, pad, (gamma, beta), (A_sig,))
+    nb, b, d = x.shape
+    tc = sig_body(b, compute_bf16) == "tensor_core"
+    _lib.require(variant == "exact" or (tc and d == 128 and x.dtype == torch.float32),
+                 f"{name}: variant {variant!r} is built for the tensor-core body at D=128 "
+                 f"on float32 x only")
+    return _signature_launch(block_gate_signature_ln_x, name, x, pad, A_sig, gamma, beta,
+                             extra=(int(x.dtype == torch.bfloat16), int(compute_bf16), int(tc),
+                                    SIG_VARIANTS[variant], eps), scratch=not tc)
 
 
 block_gate_signature_ln_x.launches = 0

@@ -40,13 +40,20 @@ from ruvector_tpu_torch.graph_transformer.gated import _fold_sig_params
 from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     block_gate_signature_ln_x,
+    block_gate_signature_ln_x_reference,
     fold_gated_attention_params,
     head_concat,
     layer_norm_rows,
     matmul_f64,
     mha_body,
     mha_tiles,
+    sig_body,
     tree_sum,
+)
+from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (
+    gate_body,
+    mincut_gate_block_from_x,
+    mincut_gate_block_from_x_reference,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
     FOLDED_KEYS,
@@ -162,6 +169,49 @@ def test_mha_body_follows_shape_and_compute_type():
     assert [mha_body(b, True) for b in (1, 48, 240, 256, 257, 512)] == \
         ["tensor_core"] * 4 + ["block_gemm"] * 2
     assert [mha_body(b, False) for b in (48, 256, 512)] == ["block_gemm"] * 3
+
+
+def test_gate_bodies_follow_shape_and_compute_type():
+    # K6c: bf16 compute at B <= 256 on the float64 tensor cores
+    assert [sig_body(b, True) for b in (1, 100, 240, 256, 257, 512)] == \
+        ["tensor_core"] * 4 + ["block_gemm"] * 2
+    assert [sig_body(b, False) for b in (100, 256, 512)] == ["block_gemm"] * 3
+    # K7: the same, and only with LN1 folded in (rows that are bf16 values)
+    ln = (torch.ones(32), torch.zeros(32))
+    assert [gate_body(b, True, ln) for b in (32, 128, 256, 288, 512)] == \
+        ["tensor_core"] * 3 + ["block_gemm"] * 2
+    assert gate_body(256, False, ln) == "block_gemm"
+    assert gate_body(256, True, None) == "block_gemm"
+
+
+@pytest.mark.parametrize("variant", ["exact", "f32_acc", "reach_one_frontier"])
+def test_gate_wrappers_take_the_plain_version_on_the_cpu(variant):
+    """K6c and K7 on CPU tensors: their plain versions, no launch; a
+    planted fault or the probe is a card-only instance and raises."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 64, 32, generator=g)
+    pad = torch.ones(2, 64)
+    A = torch.randn(32, 32, generator=g) * 0.1
+    ln = (torch.ones(32), torch.zeros(32))
+    reset_launch_counts()
+    if variant == "exact":
+        got = block_gate_signature_ln_x(x, pad, A, *ln, eps=0.01, compute_bf16=True)
+        want = block_gate_signature_ln_x_reference(x, pad, A, *ln, eps=0.01, compute_bf16=True)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+        got = mincut_gate_block_from_x(x, pad, A, lam=0.5, eps=0.01, ln=ln, compute_bf16=True)
+        want = mincut_gate_block_from_x_reference(x, pad, A, lam=0.5, eps=0.01, ln=ln,
+                                                  compute_bf16=True)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    else:
+        with pytest.raises(ValueError):
+            if variant == "f32_acc":
+                block_gate_signature_ln_x(x, pad, A, *ln, eps=0.01, compute_bf16=True,
+                                          variant=variant)
+            else:
+                mincut_gate_block_from_x(x, pad, A, lam=0.5, eps=0.01, ln=ln,
+                                         compute_bf16=True, variant=variant)
+    counts = launch_counts()
+    assert counts["block_gate_signature_ln_x"] == counts["mincut_gate_block_from_x"] == 0
 
 
 def test_mha_tiles_are_the_heads_rounded_to_bf16():

@@ -56,6 +56,7 @@ from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     mha_body,
     pack_keep,
     reduce_partials,
+    sig_body,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import _folded_shapes as _gated_folded_shapes
 from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
@@ -64,9 +65,11 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
     gated_block_layer_with_sig,
 )
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (
+    PROBE_PHASES,
     isolated_sink,
     mincut_gate_block_from_x,
     mincut_gate_block_from_x_reference,
+    two_hop_sink,
 )
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import (
     fused_neighbor_mix,
@@ -194,10 +197,16 @@ def _gated_inputs(dev, xdt, nb=3, b=256, d=128, h=4, fm=4, seed=0):
             {k: v.to(dev) for k, v in folded.items()})
 
 
+@pytest.mark.parametrize("b,d", [(256, 128), (240, 128), (256, 64), (100, 32), (320, 128)])
 @pytest.mark.parametrize("compute_bf16", [False, True])
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
-def test_block_gate_signature_ln_x_kernel(card, xdt, compute_bf16):
-    x, pad, A, (gm, bt), _, _ = _gated_inputs(card, xdt)
+def test_block_gate_signature_ln_x_kernel(card, xdt, compute_bf16, b, d):
+    """Both bodies of K6c (`sig_body`): bf16 compute at B <= 256 on the
+    float64 tensor cores (ragged B = 240 and 100, D = 64 and 32), float32
+    compute and B in (256, 512] on block_gemm."""
+    x, pad, A, (gm, bt), _, _ = _gated_inputs(card, xdt, b=b, d=d, seed=b + d)
+    assert sig_body(b, compute_bf16) == ("tensor_core" if compute_bf16 and b <= 256
+                                         else "block_gemm")
     rsum, rcnt = block_gate_signature_ln_x(x, pad, A, gm, bt, eps=0.01,
                                            compute_bf16=compute_bf16)
     want_s, want_c = block_gate_signature_ln_x_reference(x, pad, A, gm, bt, eps=0.01,
@@ -209,6 +218,26 @@ def test_block_gate_signature_ln_x_kernel(card, xdt, compute_bf16):
     assert torch.equal(rcnt, want_c)
     torch.testing.assert_close(rsum, want_s, rtol=1e-6, atol=0.0)
     assert float(rcnt[pad == 0].sum()) == 0.0
+    assert float(rcnt.sum()) > 0
+
+
+def test_block_gate_signature_fault_is_rejected(card):
+    """K6c's tensor-core body with its sums rounded to float32 every four
+    products (a planted fault, a test-only instance) misses the plain
+    version's row sums at 1e-6 relative on three partitions of config 5's
+    widths, while the exact instance meets them."""
+    x, pad, A, (gm, bt), _, _ = _gated_inputs(card, torch.float32)
+    want_s, want_c = block_gate_signature_ln_x_reference(x, pad, A, gm, bt, eps=0.01,
+                                                         compute_bf16=True)
+
+    def agrees(got):
+        torch.cuda.synchronize()
+        return torch.equal(got[1], want_c) and bool(
+            torch.allclose(got[0], want_s, rtol=1e-6, atol=0.0))
+
+    assert agrees(block_gate_signature_ln_x(x, pad, A, gm, bt, eps=0.01, compute_bf16=True))
+    assert not agrees(block_gate_signature_ln_x(x, pad, A, gm, bt, eps=0.01, compute_bf16=True,
+                                                variant="f32_acc"))
 
 
 @pytest.mark.parametrize("compute_bf16", [False, True])
@@ -270,14 +299,25 @@ def test_gated_block_layer_bf16_bodies(card, b, d):
     assert launch_counts()["gated_block_layer"] == 2
 
 
-@pytest.mark.parametrize("b", [64, 256])
+@pytest.mark.parametrize("b", [64, 256, 512])
 @pytest.mark.parametrize("compute_bf16", [False, True])
-def test_mincut_gate_block_kernel(card, b, compute_bf16):
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_mincut_gate_block_kernel(card, xdt, compute_bf16, b):
+    """Both logits of K7 (`gate_body`: the float64 tensor cores for bf16
+    compute with LN1 folded in at B <= 256, else block_gemm) and the flow
+    on bit-packed residuals: random partitions, partitions that apply a
+    cut (isolated sink, without LN; up to B = 256) and partitions whose
+    cut reaches its source side in two hops (two_hop_sink, unit LN)."""
+    d = 128
     x, pad, A, ln, _, _ = _gated_inputs(card, torch.float32, nb=6, b=b)
-    eye = torch.eye(x.shape[-1], device=card) * 0.1
-    x[:2] = isolated_sink(x[:2], 0.1)
-    pad[:2] = 1.0
-    for A_k, ln_k in ((A, ln), (eye, None)):
+    x[2:4] = isolated_sink(x[2:4], 0.1)
+    x[4:6] = two_hop_sink(2, b, d, 0.1).to(card)
+    pad[2:6] = 1.0
+    x = x.to(xdt)
+    eye = torch.eye(d, device=card) * 0.1
+    unit_ln = (torch.ones(d, device=card), torch.zeros(d, device=card))
+    for A_k, ln_k, applies in ((A, ln, None), (eye, None, slice(2, 4) if b <= 256 else None),
+                               (eye, unit_ln, slice(4, 6))):
         kp, stats = mincut_gate_block_from_x(x, pad, A_k, lam=0.5, eps=0.01, ln=ln_k,
                                              compute_bf16=compute_bf16)
         want_kp, want_stats = mincut_gate_block_from_x_reference(
@@ -286,8 +326,35 @@ def test_mincut_gate_block_kernel(card, b, compute_bf16):
         assert torch.equal(kp, want_kp)
         torch.testing.assert_close(stats[:, 2], want_stats[:, 2], rtol=0, atol=0)
         torch.testing.assert_close(stats[:, 0], want_stats[:, 0], rtol=2e-3, atol=1e-4)
-    assert float(stats[:2, 2, 0].min()) == 1.0      # the eye case applies its cuts
-    assert launch_counts()["mincut_gate_block_from_x"] == 2
+        if applies is not None:
+            assert float(stats[applies, 2, 0].min()) == 1.0
+    assert launch_counts()["mincut_gate_block_from_x"] == 3
+
+
+def test_mincut_gate_block_variants(card):
+    """The probe instance gives the exact instance's masks and stats with
+    each partition's phase cycles; the planted fault (the cut's
+    reachability stopped after its first frontier) must be rejected on
+    partitions whose source side is two hops deep."""
+    b, d = 256, 128
+    x = two_hop_sink(3, b, d, 0.1).to(card)
+    pad = torch.ones(3, b, device=card)
+    eye = torch.eye(d, device=card) * 0.1
+    gate = dict(lam=0.5, eps=0.01, ln=(torch.ones(d, device=card), torch.zeros(d, device=card)),
+                compute_bf16=True)
+    want_kp, want_stats = mincut_gate_block_from_x_reference(x, pad, eye, **gate)
+    kp, stats = mincut_gate_block_from_x(x, pad, eye, **gate)
+    pkp, pstats, cycles = mincut_gate_block_from_x(x, pad, eye, variant="probe", **gate)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, want_kp) and float(stats[:, 2, 0].min()) == 1.0
+    assert torch.equal(pkp, kp) and torch.equal(pstats, stats)
+    assert cycles.shape == (3, len(PROBE_PHASES)) and bool((cycles[:, :6] >= 0).all())
+    assert bool((cycles[:, 0] > 0).all()) and bool((cycles[:, 7] >= 2).all())
+    bad_kp, bad_stats = mincut_gate_block_from_x(x, pad, eye, variant="reach_one_frontier",
+                                                 **gate)
+    torch.cuda.synchronize()
+    assert not torch.equal(bad_kp, want_kp)
+    assert not torch.allclose(bad_stats[:, 0], want_stats[:, 0], rtol=2e-3, atol=1e-4)
 
 
 def _rel_close(got, want, tol):

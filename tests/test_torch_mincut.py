@@ -25,6 +25,7 @@ from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (
     isolated_sink,
     mincut_gate_block_from_x,
+    two_hop_sink,
 )
 
 LAM, EPS = 0.5, 0.01
@@ -120,6 +121,36 @@ def test_isolated_sink_partitions_apply_their_cut():
     assert stats[:, 2, 0].tolist() == [1.0, 1.0, 1.0]
     np.testing.assert_array_equal(_words(kp), np.asarray(jkp))
     np.testing.assert_allclose(stats[:, 0, 0].numpy(), np.asarray(jstats)[:, 0, 0], rtol=2e-3)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_two_hop_sink_partitions_need_the_second_frontier(bf16, monkeypatch):
+    """The construction the card checks use against a cut's reachability
+    stopped early: every partition applies its cut, with JAX K7's words
+    (LN1 folded in with unit gamma); s-reachability cut after its first
+    frontier gives other words."""
+    import ruvector_tpu_torch.attention.mincut_device as md
+
+    k, b, d = 2, 64, 128
+    x = two_hop_sink(k, b, d, 0.1, EPS).numpy()
+    pad = np.ones((k, b), np.float32)
+    A = (np.eye(d) * 0.1).astype(np.float32)
+    ln = (torch.ones(d), torch.zeros(d))
+    kp, stats = _k7(x, pad, A, ln=ln, compute_bf16=bf16)
+    jkp, jstats = jk7(jnp.asarray(x), jnp.asarray(pad), jnp.asarray(A), lam=LAM, eps=EPS,
+                      ln=(jnp.ones(d), jnp.zeros(d)), compute_bf16=bf16)
+    assert stats[:, 2, 0].tolist() == [1.0, 1.0]
+    np.testing.assert_array_equal(_words(kp), np.asarray(jkp))
+    np.testing.assert_allclose(stats[:, 0, 0].numpy(), np.asarray(jstats)[:, 0, 0], rtol=2e-3)
+
+    def one_frontier(r, s):
+        reach = torch.zeros(r.shape[:2], dtype=torch.bool)
+        reach[:, s] = True
+        return reach | ((r > md._TINY) & reach[:, :, None]).any(dim=1)
+
+    monkeypatch.setattr(md, "_reachable_from", one_frontier)
+    bad, _ = _k7(x, pad, A, ln=ln, compute_bf16=bf16)
+    assert not torch.equal(bad, kp)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
