@@ -101,6 +101,7 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (  # noqa: E402
     block_dense_attention_reference,
     block_dense_layer_fused,
     block_dense_layer_fused_reference,
+    k1_body,
 )
 from ruvector_tpu_torch.ops.kernels.flash_neighbor import (  # noqa: E402
     flash_neighbor_attention,
@@ -184,11 +185,11 @@ ITERS = 3           # layer applications on the main path, each on its own outpu
 PEAK_BYTES_PER_S = 3.35e12
 # "tf32x3": float32-grade products on the tensor cores as three TF32
 # passes (495 TFLOP/s / 3), the least time this card needs for the float32
-# products of a kernel that runs them there (K5b's tensor-core body).
-# "f64": float64 sums on the float64 tensor cores (67 TFLOP/s), the rate
-# of the gate logits, whose products must be exact and whose sums float64
-# (K6c, K4b's signature, K7): bf16 tensor cores with float32 sums cannot
-# give the plain version's bits
+# products of a kernel that runs them there (K5b's and K1's tensor-core
+# bodies). "f64": float64 sums on the float64 tensor cores (67 TFLOP/s),
+# the rate of the gate logits, whose products must be exact and whose sums
+# float64 (K6a, K6b, K6c, K4b's signature, K7): bf16 tensor cores with
+# float32 sums cannot give the plain version's bits
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32x3": 495e12 / 3,
                   "f64": 67e12}
 # tolerances against the plain versions on the same inputs. f32: sums of
@@ -402,8 +403,8 @@ def ptxas_entries(text: str) -> list[dict]:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
         if m:
             # the layer's kernels by name and template arguments (mangled)
-            short = re.search(r"((?:tc_)?(?:layer|mha_fwd|mha_bwd|signature|gate)_kernelI\w*?)EvNS",
-                              m.group(1))
+            short = re.search(r"((?:tc_)?(?:layer|mha_fwd|mha_bwd|signature|gate|attention|"
+                              r"fused_layer|fused)_kernelI\w*?)EvNS", m.group(1))
             name = short.group(1) if short else m.group(1)
             if not entries or entries[-1]["entry"] != name:
                 entries.append({"entry": name})
@@ -430,10 +431,9 @@ def phase_build() -> None:
     say("build_sources", **{name: round(t, 3) for name, t in seconds.items()})
     for line in spills[:8]:
         print("  ptxas:", line, flush=True)
-    # the instances of the gated kernels: the tensor-core bodies and
-    # block_gemm's
-    for source in ("gated_block_layer", "gated_block_mha", "gated_block_attn",
-                   "mincut_gate_block"):
+    # the instances of the tensor-core bodies and of the bodies beside them
+    for source in ("block_dense_attn", "gated_block_layer", "gated_block_mha",
+                   "gated_block_attn", "mincut_gate_block"):
         for e in ptxas_entries(_lib.log_path(source).read_text()):
             say("build_ptxas", source=source, **e)
 
@@ -450,10 +450,16 @@ def _sparse_wd(nb, b, t, per_row, gen):
     return w
 
 
-def phase_parity(params, cfg) -> None:
+def phase_parity(params, cfg) -> float:
     """Each kernel against its plain version at the main path's widths
     (D=128, H=4), with a ragged B, a local table T > 512 (a real halo),
-    with and without log_mult, in f32 and bf16."""
+    with and without log_mult, in f32 and bf16 (K1: each of its bodies).
+    K1's tensor-core body is also held to the float32 limits where its
+    attention is exact (one edge per row, wd = 1.0, a table of bf16
+    values: p = 1), and two controls planted in that body must be
+    rejected: single-pass TF32 (by the float32 limits) and head 0 left out
+    of attn_out (by the bf16 limits). Returns that float32-grade max abs
+    error."""
     gen = torch.Generator().manual_seed(0)
     nb, b, t, d, h = 6, 504, 1024, cfg.hidden_dim, cfg.heads
     wd = _sparse_wd(nb, b, t, 16, gen).to(DEV)
@@ -469,11 +475,33 @@ def phase_parity(params, cfg) -> None:
             agree(f"K2 block_dense_attention T={t}{tag}",
                   block_dense_attention(L, u, sb, wd, lm_case, scale=0.25),
                   block_dense_attention_reference(L, u, sb, wd, lm_case, scale=0.25), cdt)
-            agree(f"K1 block_dense_layer_fused T={t}{tag}",
+            agree(f"K1 block_dense_layer_fused T={t}{tag} body={k1_body(cdt)}",
                   block_dense_layer_fused(L, msg, wd, folded, lm_case, dropout=0.0,
                                           eps=cfg.eps),
                   block_dense_layer_fused_reference(L, msg, wd, folded, lm_case,
                                                     dropout=0.0, eps=cfg.eps), cdt)
+    # control: head 0 left out of attn_out (the last bf16 inputs, with lm)
+    expect_rejected("K1 without head 0's tv_0 Wvo_0", lambda: agree(
+        "control: K1 body=tensor_core without head 0",
+        block_dense_layer_fused(L, msg, wd, folded, lm, dropout=0.0, eps=cfg.eps,
+                                variant="no_head0"),
+        block_dense_layer_fused_reference(L, msg, wd, folded, lm, dropout=0.0, eps=cfg.eps),
+        torch.bfloat16))
+    # float32 grade: one edge per row, wd = 1.0, a table of bf16 values
+    wd1 = torch.zeros(nb, b, t)
+    wd1.scatter_(2, torch.randint(0, t, (nb, b, 1), generator=gen), 1.0)
+    wd1 = wd1.to(DEV)
+    L1 = torch.randn(nb, t, d, generator=gen).to(DEV, torch.bfloat16)
+    msg1 = torch.randn(nb, b, d, generator=gen).to(DEV)
+    want1 = block_dense_layer_fused_reference(L1, msg1, wd1, folded, dropout=0.0, eps=cfg.eps)
+    f32_grade = agree(f"K1 block_dense_layer_fused one edge a row, float32 grade "
+                      f"body={k1_body(torch.bfloat16)}",
+                      block_dense_layer_fused(L1, msg1, wd1, folded, dropout=0.0, eps=cfg.eps),
+                      want1, torch.float32)
+    expect_rejected("K1 with single-pass TF32 products", lambda: agree(
+        "control: K1 body=tensor_core with single-pass TF32, float32 grade",
+        block_dense_layer_fused(L1, msg1, wd1, folded, dropout=0.0, eps=cfg.eps,
+                                variant="one_tf32"), want1, torch.float32))
     n, m = 4099, 16
     k3 = [torch.randn(s, generator=gen).to(DEV) for s in ((n, h, d), (n, h), (n, m, d))]
     mask = (torch.rand(n, m, generator=gen) > 0.2).float().to(DEV)
@@ -484,6 +512,7 @@ def phase_parity(params, cfg) -> None:
           fused_neighbor_mix_reference(*k3, mask, wnorm, heads=h, scale=0.25),
           torch.float32)
     torch.cuda.synchronize()
+    return f32_grade
 
 
 def bench_features(n: int, d: int) -> np.ndarray:
@@ -784,6 +813,12 @@ def phase_train_parity(gparams, gcfg) -> None:
         if mha_body(bs, True) == "tensor_core":
             agree_grads(f"K5b gated_block_attention_bwd float32 grade {tag}", got, want,
                         torch.bfloat16, TOL_F32_GRADE)
+    # K6b at the halo layout's B = 240 in bf16 (the float64 tensor-core
+    # body, padded to 256)
+    xh, ph = h320[:, :H_BLOCK].contiguous(), pad320[:, :H_BLOCK].contiguous()
+    agree_rows(f"K6b block_gate_signature_x B={H_BLOCK} bf16 body={sig_body(H_BLOCK, True)}",
+               block_gate_signature_x(xh, ph, A_sig, eps=gcfg.eps, compute_bf16=True),
+               block_gate_signature_x_reference(xh, ph, A_sig, eps=gcfg.eps, compute_bf16=True))
     # the tensor-core K5b at B = 256: float32 grade, and two planted faults
     args = (h, keep, pad, A_cat, Wvo_cat)
     want = gated_block_attention_bwd_reference(*args, g, compute_bf16=True)
@@ -1241,7 +1276,7 @@ def phase_config5_halo(gparams, gcfg) -> dict:
         layout_s=round(layout_s, 3), gate_init_ms=init_ms,
         steady_ms=[round(t, 3) for t in steady_ms], drift_ms=[round(t, 3) for t in drift_ms],
         resolved_per_drift_step=drift_res, budget=budget, train_step_ms=train_ms,
-        loss=float(loss))
+        loss=float(loss), k6b_body=sig_body(b, gcfg.compute_dtype == "bfloat16"))
     say("config5_halo_launches", init=_nonzero(init_counts), steady=_nonzero(steady_counts),
         drift=_nonzero(drift_counts), train=_nonzero(train_counts))
     h = gated._ln(gparams[0]["ln1"], fpad.reshape(nb, b, d)).contiguous()
@@ -1249,6 +1284,26 @@ def phase_config5_halo(gparams, gcfg) -> dict:
                 for k in ("block_gate_signature_x", "gated_block_attention_fwd",
                           "gated_block_attention_bwd")}
     return dict(h=h, pad=bdg.node_pad, launches=launches)
+
+
+def phase_halo_signature_control(halo: dict, gparams, gcfg) -> None:
+    """K6b on the halo layout's own input (layer 0's normalized stream,
+    every partition) against its plain version, and a fault planted in
+    its tensor-core body, float32 sums, which must be rejected there. (On
+    three random partitions the fault can pass: its float32 sums move a
+    row sum past 1e-6 only where they flip a bf16 rounding of Q.)"""
+    h, pad = halo["h"], halo["pad"]
+    nb, b, _ = h.shape
+    A_sig = gated._fold_sig_params(gparams[0], gcfg)
+    want = block_gate_signature_x_reference(h, pad, A_sig, eps=gcfg.eps, compute_bf16=True)
+    tag = f"halo layout nB={nb} B={b} body={sig_body(b, True)}"
+    agree_rows(f"K6b block_gate_signature_x {tag}",
+               block_gate_signature_x(h, pad, A_sig, eps=gcfg.eps, compute_bf16=True), want)
+    expect_rejected("K6b with float32 instead of float64 sums", lambda: agree_rows(
+        f"control: K6b {tag} with float32 sums",
+        block_gate_signature_x(h, pad, A_sig, eps=gcfg.eps, compute_bf16=True,
+                               variant="f32_acc"), want))
+    torch.cuda.synchronize()
 
 
 def phase_contrastive(params, cfg, feats, graph) -> None:
@@ -1327,12 +1382,13 @@ def train_report(c5: dict, halo: dict, gparams, gcfg) -> list:
                  lambda: block_gate_signature_x_reference(hx, hpad, A_sig, eps=gcfg.eps,
                                                           compute_bf16=True),
                  agree_rows, bound(nbytes(hx, hpad, A_sig) + sig_out,
-                                   {bf16: 2 * hn * (hb + d) * d}),
-                 {"shape": f"halo layout: nB={hx.shape[0]}, B={hb}"}))
+                                   {"f64": 2 * hn * (hb + d) * d}),
+                 {"shape": f"halo layout: nB={hx.shape[0]}, B={hb}",
+                  "body": sig_body(hb, True)}))
     rows.append(("block_gate_signature",
                  lambda: block_gate_signature(q, k, hpad, eps=gcfg.eps, scale=scale),
                  lambda: block_gate_signature_reference(q, k, hpad, eps=gcfg.eps, scale=scale),
-                 agree_rows, bound(nbytes(q, k, hpad) + sig_out, {bf16: 2 * hn * hb * d}),
+                 agree_rows, bound(nbytes(q, k, hpad) + sig_out, {"f64": 2 * hn * hb * d}),
                  {"shape": f"halo layout: nB={hx.shape[0]}, B={hb}, q/k bf16",
                   "path": OFF_PATH["block_gate_signature"]}))
     return rows
@@ -1676,7 +1732,7 @@ def main() -> int:
     d, k, heads = 128, 16, 4
     cfg = RuvectorLayerConfig(d, d, heads=heads, compute_dtype="bfloat16")
     params = ruvector_layer_init(0, cfg, device=DEV)
-    phase_parity(params, cfg)
+    k1_f32_grade_err = phase_parity(params, cfg)
     # config 5: dim 128, 4 heads, FFN x4, 2 layers, lam 0.5, eps 0.01,
     # hysteresis band 0.05, budget nB/16, bf16 compute on f32 features
     gcfg = gated.GatedGraphTransformerConfig(
@@ -1757,6 +1813,7 @@ def main() -> int:
     # --- training: config 5's train step, the halo layout, the contrastive step
     train_launches = phase_config5_train(gparams, gcfg, c5)
     c5_halo = phase_config5_halo(gparams, gcfg)
+    phase_halo_signature_control(c5_halo, gparams, gcfg)
     launches["gated_block_layer"] += train_launches["gated_block_layer"]
     for name in ("gated_block_attention_fwd", "gated_block_attention_bwd",
                  "block_gate_signature_x"):
@@ -1787,11 +1844,17 @@ def main() -> int:
             L_tab, msgf, wd, folded, dropout=0.0, eps=cfg.eps)
         n_edges = int((wd > 0).sum())
         rows = bdg.n_blocks * bdg.block
+        k1b = k1_body(cfg.cdt)
+        # the epilogue's float32 products: float32 grade on the tensor
+        # cores (3xTF32) in the tensor-core body, float32 FMA in the other
         ops = {cfg.cdt: 2 * (2 * heads + 1) * d * n_edges,
-               torch.float32: 2 * (2 * heads + 7) * d * d * rows}
+               "tf32x3" if k1b == "tensor_core" else torch.float32:
+                   2 * (2 * heads + 7) * d * d * rows}
         report.append(("block_dense_layer_fused", k1, k1_ref, _agree_as(cfg.cdt),
                        bound(nbytes(L_tab, msgf, wd, *folded.values()) + nbytes(msgf), ops),
-                       {}))
+                       {"body": k1b, "f32_grade_max_abs_err": k1_f32_grade_err,
+                        "f32_grade_check": "one edge a row, wd = 1, bf16-valued table, "
+                                           "B=504, T=1024, limits 1e-4 / 1e-5"}))
 
         # K2: the use_pallas block-dense route's inputs
         hd = d // heads

@@ -17,16 +17,46 @@
 // (Wagg), the GRU with hidden state M, the (1 - dropout) scale and the
 // LayerNorm; rows with no edge output LayerNorm(M).
 //
-// What bounds it on an H100. The TPU kernel held the whole table L in VMEM.
-// Here L does not fit: T = bsz + halo rounded to 128 may reach 1024 rows,
-// 256 KB in bf16 at D=128, more than the 227 KB a block may use. Per row
-// the dense tile costs (2H+1)*T*D multiply-adds but only ~16 of the T
-// columns are edges, and the kernel runs on the CUDA cores (no tensor
-// cores yet), so this version is bound by f32 FMA issue rate, then by
-// shared-memory loads; HBM traffic (L, wd, msg read once, output written
-// once) is small beside it.
+// What bounds K1 on an H100, at the main path's shape (nB = 214 blocks of
+// B = 512 rows, T = 512, D = 128, H = 4): per row (2H+1) T D bf16
+// multiply-adds over the dense tile (129 GFLOP a call) and (2H+7) D^2
+// float32 ones in the epilogue (54 GFLOP), against ~0.36 GB of bytes (wd,
+// 224 MB, the largest). At float32 grade on the tensor cores (3xTF32, 165
+// TFLOP/s) the epilogue's operations bound it.
 //
-// Design (the same core serves K1 and K2):
+// Two bodies of K1, one for each compute type (an explicit dispatch, not a
+// fallback):
+//
+// * tc_fused_kernel (bf16 compute): every product on the tensor cores with
+//   mma.sync (gated_tc.cuh). A CTA of 8 warps owns 128 rows of one block,
+//   a warp a 16-row strip. The dense tile's products (u_h L^T, p L, wd L)
+//   take bf16 operands with float32 sums on m16n8k16: L streams through
+//   shared memory in 64-row chunks (cp.async, two buffers) shared by the
+//   warps, the scores stay in registers and become the A operand of p L
+//   (FlashAttention-2's online softmax, one pass per head), and wd is read
+//   once, coalesced, in a first pass that also keeps each chunk's edge
+//   bits (one word a lane) in a small global scratch for the head passes.
+//   The epilogue's float32 products (M A_h, tv_h Wvo_h, Wagg, w3, u2, uhk)
+//   run as 3xTF32 on m16n8k8 with float32 sums, the float32 grade the TPU
+//   kernel's f32 products have: the weights go through shared memory in
+//   32-row slabs shared by the warps, the left operands are the warp's
+//   float32 strips in shared memory (M; attn_out, then X1 and AGG; tv_h,
+//   then r M). Biases, sigmoid, tanh, dropout and LayerNorm stay float32
+//   on the CUDA cores.
+// * fused_layer_kernel (float32 compute): the attention core
+//   below and tile_gemm on the CUDA cores. Single-pass TF32 would break
+//   the float32 tolerance of 1e-4.
+//
+// K2 and the float32 K1 (what bounds them, and the CUDA-core design).
+// The TPU kernel held the whole table L in VMEM. Here L does not fit:
+// T = bsz + halo rounded to 128 may reach 1024 rows, 256 KB in bf16 at
+// D=128, more than the 227 KB a block may use. Per row the dense tile
+// costs (2H+1)*T*D multiply-adds but only ~16 of the T columns are edges,
+// and this core runs on the CUDA cores, so it is bound by f32 FMA issue
+// rate, then by shared-memory loads; HBM traffic (L, wd, msg read once,
+// output written once) is small beside it.
+//
+// Design of that core (it serves K2 and the float32 K1):
 // * A block owns a 16-row tile of one block-dense block (grid = row tiles x
 //   blocks: thousands of blocks in flight on 132 SMs) and masks the ragged
 //   end of B itself — the TPU wrapper asserted B % tile == 0 instead.
@@ -43,33 +73,18 @@
 // * bf16 compute rounds where the JAX reference rounds: L and u (K2 input,
 //   K1 after M A_h + c_h) are bf16 values, p is rounded to bf16 before the
 //   p.L product and wd is rounded to bf16 before wd.L; sums stay f32, and so
-//   does all GRU/LayerNorm math. One difference is inherent to streaming:
-//   p is rounded relative to the running max rather than the final max.
+//   does all GRU/LayerNorm math. One difference is inherent to streaming
+//   (both cores and K1's tensor-core body): p is rounded relative to the
+//   running max rather than the final max.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stdint.h>
+#include "gated_tc.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace rvt;  // kThreads (256), kWarps, kNeg, warp_sum, warp_max, the tensor-core helpers
+
 constexpr int kRows = 16;   // row tile
 constexpr int kChunk = 32;  // local-table columns per streamed chunk (= warp width)
-constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -517,6 +532,517 @@ int run_fused(const FusedArgs& a, cudaStream_t s) {
 RVT_DISPATCH(attention, AttnArgs)
 RVT_DISPATCH(fused, FusedArgs)
 
+// ---------------------------------------------------------------------------
+// K1 on the tensor cores (bf16 compute): tc_fused_kernel
+// ---------------------------------------------------------------------------
+
+namespace k1tc {
+
+constexpr int kStrip = 16;                 // rows of a warp's strip
+constexpr int kCtaRows = kStrip * kWarps;  // rows of a block per CTA (128)
+constexpr int kTab = 64;                   // table rows per streamed chunk
+constexpr int kSlab = 32;                  // weight rows per staged slab
+
+// Test-only faults, built at D = 128 only: kOneTf32 keeps only the hi*hi
+// pass of every float32-grade product; kNoHead0 leaves head 0's tv_0 Wvo_0
+// out of attn_out.
+enum Variant { kExact = 0, kOneTf32 = 1, kNoHead0 = 2 };
+
+// Shared memory, in floats: per warp three float32 strips [kStrip, D]
+// (M; attn_out -> X1 -> AGG; tv_h -> r M), then a region that holds either
+// two bf16 table chunks [kTab, D] or two float32 weight slabs [kSlab, D + 4].
+template <int D>
+struct Plan {
+  static constexpr int kStripF = kStrip * D;
+  static constexpr int kM = 0;
+  static constexpr int kS = kM + kWarps * kStripF;
+  static constexpr int kT = kS + kWarps * kStripF;
+  static constexpr int kBuf = kT + kWarps * kStripF;
+  static constexpr int kSlabF = kSlab * (D + 4);
+  static constexpr int kBufF = 2 * kSlabF > kTab * D ? 2 * kSlabF : kTab * D;
+  static constexpr size_t kBytes = (size_t)(kBuf + kBufF) * sizeof(float);
+};
+
+// Index of element (r, col) of a float32 strip [kStrip, D]: the 8-column
+// groups of a row XOR-swizzled with the row, so that a warp's float2
+// reads of an m16n8k8 A operand (rows g and g + 8, columns 2c, 2c + 1 of
+// one k8 block) fall in 32 different banks.
+template <int D>
+__device__ __forceinline__ int fsw(int r, int col) {
+  constexpr int kMask = (D / 8 < 8 ? D / 8 : 8) - 1;
+  return r * D + ((((col >> 3) ^ (r & kMask))) << 3) + (col & 7);
+}
+
+// The accumulators of a strip (the m16n8 layout: tile n, lane 4g + c holds
+// rows g and g + 8, columns 8n + 2c and 8n + 2c + 1) from or to a strip.
+template <int D>
+__device__ __forceinline__ void load_acc(float (&acc)[D / 8][4], const float* S) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const float2 v0 = *reinterpret_cast<const float2*>(S + fsw<D>(g, 8 * n + 2 * c));
+    const float2 v1 = *reinterpret_cast<const float2*>(S + fsw<D>(g + 8, 8 * n + 2 * c));
+    acc[n][0] = v0.x; acc[n][1] = v0.y; acc[n][2] = v1.x; acc[n][3] = v1.y;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_acc(float* S, const float (&acc)[D / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(S + fsw<D>(g, 8 * n + 2 * c)) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(S + fsw<D>(g + 8, 8 * n + 2 * c)) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// acc += bias at each accumulator's column
+template <int D>
+__device__ __forceinline__ void add_bias(float (&acc)[D / 8][4], const float* __restrict__ b) {
+  const int c = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(b + 8 * n + 2 * c));
+    acc[n][0] += v.x; acc[n][1] += v.y; acc[n][2] += v.x; acc[n][3] += v.y;
+  }
+}
+
+// The warp's message rows [nr of kStrip] as float32 into its strip (rows
+// at or past nr become 0).
+template <int D>
+__device__ __forceinline__ void load_strip(float* S, const void* msg, int msg_bf16,
+                                           size_t row0, int nr) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < kStrip * D / 4; i += 32) {
+    const int r = i / (D / 4), col = (i % (D / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nr) {
+      const size_t at = (row0 + r) * D + col;
+      if (msg_bf16) {
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(
+            static_cast<const __nv_bfloat16*>(msg) + at);
+        const float2 lo = __bfloat1622float2(p[0]), hi = __bfloat1622float2(p[1]);
+        v = make_float4(lo.x, lo.y, hi.x, hi.y);
+      } else {
+        v = *reinterpret_cast<const float4*>(static_cast<const float*>(msg) + at);
+      }
+    }
+    *reinterpret_cast<float4*>(S + fsw<D>(r, col)) = v;
+  }
+}
+
+// Start copying rows [k0, k0 + kSlab) of W (row stride ldw floats, D
+// columns) into a slab of row stride D + 4 (so that the B-operand reads
+// of m16n8k8, rows 2c and 2c + 1 and columns g, fall in 32 banks).
+template <int D>
+__device__ __forceinline__ void stage_slab(float* dst, const float* __restrict__ W, int ldw,
+                                           int k0) {
+  for (int i = threadIdx.x; i < kSlab * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), col = (i % (D / 4)) * 4;
+    cp_async16(dst + r * (D + 4) + col, W + (size_t)(k0 + r) * ldw + col);
+  }
+  cp_async_commit();
+}
+
+// acc += X W at float32 grade for the warp's strip X [kStrip, D] (float32,
+// fsw layout) and W [D, D] (row stride ldw, global memory): 3xTF32 on
+// mma.sync m16n8k8 (mma3_row; ONE keeps only the hi*hi pass, a fault). W
+// goes through the two slabs of buf in turn, shared by the CTA's warps, so
+// every thread calls it; it ends with a barrier.
+template <int D, bool ONE>
+__device__ void strip_product(float (&acc)[D / 8][4], const float* X,
+                              const float* __restrict__ W, int ldw, float* buf) {
+  constexpr int kLd = D + 4, kN = D / kSlab;
+  static_assert(D % kSlab == 0, "the slabs tile K = D");
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  stage_slab<D>(buf, W, ldw, 0);
+  for (int s = 0; s < kN; ++s) {
+    if (s + 1 < kN) {
+      stage_slab<D>(buf + ((s + 1) & 1) * Plan<D>::kSlabF, W, ldw, (s + 1) * kSlab);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // slab s visible
+    const float* sl = buf + (s & 1) * Plan<D>::kSlabF;
+#pragma unroll
+    for (int j = 0; j < kSlab / 8; ++j) {
+      const int k = s * kSlab + 8 * j + 2 * c;
+      const float2 va = *reinterpret_cast<const float2*>(X + fsw<D>(g, k));
+      const float2 vb = *reinterpret_cast<const float2*>(X + fsw<D>(g + 8, k));
+      const Tf32A a = split_a(va.x, vb.x, va.y, vb.y);
+      const float* b0 = sl + (8 * j + 2 * c) * kLd + g;
+      mma3_row<D / 8, ONE>(acc, a,
+                           [&](int nt) { return make_float2(b0[8 * nt], b0[kLd + 8 * nt]); });
+    }
+    __syncthreads();  // slab s is free for s + 2
+  }
+}
+
+// Start copying table rows [t0, t0 + kTab) of Lk [T, D] (bf16) into dst
+// (sw rows); rows at or past T become 0.
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ Lk, int t0,
+                                           int T) {
+  for (int i = threadIdx.x; i < kTab * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), col = (i % (D / 8)) * 8;
+    bf16* d = dst + sw<D>(r, col);
+    if (t0 + r < T)
+      cp_async16(d, Lk + (size_t)(t0 + r) * D + col);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_commit();
+}
+
+// body(ch, chunk) for the table's chunks of kTab rows, staged in turn into
+// the two halves of buf while the other half is read. Every thread calls
+// it (it holds barriers); it ends with a barrier.
+template <int D, typename F>
+__device__ __forceinline__ void table_loop(bf16* buf, const bf16* Lk, int T, F body) {
+  const int n = (T + kTab - 1) / kTab;
+  stage_rows<D>(buf, Lk, 0, T);
+  for (int ch = 0; ch < n; ++ch) {
+    if (ch + 1 < n) {
+      stage_rows<D>(buf + ((ch + 1) & 1) * kTab * D, Lk, (ch + 1) * kTab, T);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk ch visible
+    body(ch, static_cast<const bf16*>(buf + (ch & 1) * kTab * D));
+    __syncthreads();  // its half is free for chunk ch + 2
+  }
+}
+
+// Loads of wd or lm: STREAM marks the lines first to leave L2 (wd is read
+// once), else they go through the read-only cache.
+template <bool STREAM>
+__device__ __forceinline__ float ld1(const float* p) {
+  if constexpr (STREAM) return __ldcs(p);
+  else return __ldg(p);
+}
+
+template <bool STREAM>
+__device__ __forceinline__ float2 ld2(const float* p) {
+  if constexpr (STREAM) return __ldcs(reinterpret_cast<const float2*>(p));
+  else return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+// v[n][e] = the thread's values of a [B, T] float32 array (wd or lm) at
+// its score positions of the table chunk at t0: tile n, rows g (e = 0, 1)
+// and g + 8 (e = 2, 3) of the strip, columns t0 + 8n + 2c + (e & 1). p0,
+// p1: the two rows (null past B); columns past T read as 0. STREAM reads
+// around L1 and marks the lines first to leave L2 (wd is read once).
+template <bool STREAM>
+__device__ __forceinline__ void load_at_scores(float (&v)[8][4], const float* p0, const float* p1,
+                                               int t0, int T) {
+  const int c = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = t0 + 8 * n + 2 * c;
+    float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
+    if ((T & 1) == 0) {  // rows start 8-byte aligned
+      if (col < T) {
+        if (p0 != nullptr) a = ld2<STREAM>(p0 + col);
+        if (p1 != nullptr) b = ld2<STREAM>(p1 + col);
+      }
+    } else {
+      if (p0 != nullptr) {
+        if (col < T) a.x = ld1<STREAM>(p0 + col);
+        if (col + 1 < T) a.y = ld1<STREAM>(p0 + col + 1);
+      }
+      if (p1 != nullptr) {
+        if (col < T) b.x = ld1<STREAM>(p1 + col);
+        if (col + 1 < T) b.y = ld1<STREAM>(p1 + col + 1);
+      }
+    }
+    v[n][0] = a.x; v[n][1] = a.y; v[n][2] = b.x; v[n][3] = b.y;
+  }
+}
+
+// s = u L[0:64]^T for a strip and a table chunk in shared memory: eight
+// 16x8 tiles of scores (score_chunk, gated_tc.cuh, over 64 columns)
+template <int D>
+__device__ __forceinline__ void scores64(float (&s)[8][4], const uint32_t (&u)[D / 16][4],
+                                         const bf16* Lc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t bb[4];
+      ldsm_x4(bb, Lc + sw<D>(16 * q + (lane & 7) + ((lane >> 4) << 3),
+                             kk * 16 + (((lane >> 3) & 1) << 3)));
+      mma16816(s[2 * q], u[kk], bb[0], bb[1]);
+      mma16816(s[2 * q + 1], u[kk], bb[2], bb[3]);
+    }
+  }
+}
+
+// Scores of 8 tiles (64 columns) as the A operand of their product with
+// the chunk (4 k16 fragments), rounded to bf16.
+__device__ __forceinline__ void chunk_frags(uint32_t (&f)[4][4], const float (&v)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    f[kk][0] = pack_bf16(v[2 * kk][0], v[2 * kk][1]);
+    f[kk][1] = pack_bf16(v[2 * kk][2], v[2 * kk][3]);
+    f[kk][2] = pack_bf16(v[2 * kk + 1][0], v[2 * kk + 1][1]);
+    f[kk][3] = pack_bf16(v[2 * kk + 1][2], v[2 * kk + 1][3]);
+  }
+}
+
+__device__ __forceinline__ bool quad_any(bool v) {
+  int x = v;
+  x |= __shfl_xor_sync(0xffffffffu, x, 1);
+  x |= __shfl_xor_sync(0xffffffffu, x, 2);
+  return x != 0;
+}
+
+// bits: the edge-bit scratch [nB, row CTAs, kWarps, T chunks, 32 lanes]
+// (one word a lane and chunk: bit 4n + e of the thread's score positions,
+// load_at_scores), written by the wd pass and read by the head passes.
+template <int D, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+tc_fused_kernel(const FusedArgs a, uint32_t* __restrict__ bits_all, int heads) {
+  using P = Plan<D>;
+  constexpr int NT = D / 8;
+  constexpr bool ONE = V == kOneTf32;
+  extern __shared__ __align__(16) float smem[];
+  const int k = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int B = a.b, T = a.t;
+  const int r0 = blockIdx.x * kCtaRows + warp * kStrip;  // the strip's first row in block k
+  const size_t row0 = (size_t)k * B + r0;
+  const bool ok0 = r0 + g < B, ok1 = r0 + g + 8 < B;
+  float* MS = smem + P::kM + warp * P::kStripF;
+  float* SS = smem + P::kS + warp * P::kStripF;
+  float* TS = smem + P::kT + warp * P::kStripF;
+  float* wbuf = smem + P::kBuf;
+  bf16* tbuf = reinterpret_cast<bf16*>(smem + P::kBuf);
+  const bf16* Lk = static_cast<const bf16*>(a.L) + (size_t)k * T * D;
+  const int nch = (T + kTab - 1) / kTab;
+  uint32_t* bits = bits_all + (((size_t)k * gridDim.x + blockIdx.x) * kWarps + warp) * nch * 32 +
+                   lane;
+
+  load_strip<D>(MS, a.msg, a.msg_bf16, row0, B - r0);
+
+  // pass over the table with wd: wm = bf16(wd) L, the edge bits, has_any
+  float acc[NT][4];
+  zero<D>(acc);
+  bool has0 = false, has1 = false;
+  {
+    const float* w0 = ok0 ? a.wd + (row0 + g) * T : nullptr;
+    const float* w1 = ok1 ? a.wd + (row0 + g + 8) * T : nullptr;
+    float w[8][4];
+    load_at_scores<true>(w, w0, w1, 0, T);
+    table_loop<D>(tbuf, Lk, T, [&](int ch, const bf16* Lc) {
+      uint32_t f[4][4], word = 0u;
+      chunk_frags(f, w);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) word |= (w[n][e] > 0.f ? 1u : 0u) << (4 * n + e);
+      bits[ch * 32] = word;
+      has0 |= (word & 0x33333333u) != 0u;  // e = 0, 1: row g
+      has1 |= (word & 0xccccccccu) != 0u;  // e = 2, 3: row g + 8
+      if (ch + 1 < nch) load_at_scores<true>(w, w0, w1, (ch + 1) * kTab, T);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma_row_k16<D>(acc, f[kk], Lc, 16 * kk);
+    });
+  }
+  has0 = quad_any(has0);
+  has1 = quad_any(has1);
+  // attn_out starts as wm + bout + has_any bvo
+  {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 bo = __ldg(reinterpret_cast<const float2*>(a.bout + 8 * n + 2 * c));
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(a.bvo + 8 * n + 2 * c));
+      acc[n][0] += bo.x + (has0 ? bv.x : 0.f);
+      acc[n][1] += bo.y + (has0 ? bv.y : 0.f);
+      acc[n][2] += bo.x + (has1 ? bv.x : 0.f);
+      acc[n][3] += bo.y + (has1 ? bv.y : 0.f);
+    }
+    store_acc<D>(SS, acc);
+  }
+
+  const float* lm0 = a.lm != nullptr && ok0 ? a.lm + (row0 + g) * T : nullptr;
+  const float* lm1 = a.lm != nullptr && ok1 ? a.lm + (row0 + g + 8) * T : nullptr;
+  for (int h = 0; h < heads; ++h) {
+    // u_h = M A_h + c_h, rounded to bf16 as the scores' A operand
+    zero<D>(acc);
+    strip_product<D, ONE>(acc, MS, a.A + (size_t)h * D * D, D, wbuf);
+    add_bias<D>(acc, a.c + h * D);
+    uint32_t uf[D / 16][4];
+    to_frags<D>(uf, acc);
+    // one pass over the table: online softmax, acc = sum p L
+    zero<D>(acc);
+    float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+    table_loop<D>(tbuf, Lk, T, [&](int ch, const bf16* Lc) {
+      const uint32_t word = bits[ch * 32];
+      float s[8][4];
+      scores64<D>(s, uf, Lc);
+      if (a.lm != nullptr) {
+        float lv[8][4];
+        load_at_scores<false>(lv, lm0, lm1, ch * kTab, T);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] += lv[n][e];
+      }
+      float x0 = kNeg, x1 = kNeg;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!((word >> (4 * n + e)) & 1u)) s[n][e] = kNeg;
+          if (e < 2) x0 = fmaxf(x0, s[n][e]);
+          else x1 = fmaxf(x1, s[n][e]);
+        }
+      const float mn0 = fmaxf(m0, quad_max(x0)), mn1 = fmaxf(m1, quad_max(x1));
+      const float cr0 = __expf(m0 - mn0), cr1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool edge = (word >> (4 * n + e)) & 1u;
+          const float p = edge ? __expf(s[n][e] - (e < 2 ? mn0 : mn1)) : 0.f;
+          s[n][e] = p;
+          if (e < 2) ps0 += p;
+          else ps1 += p;
+        }
+      l0 = l0 * cr0 + ps0;  // per-lane partial sums: the quad's corrections agree
+      l1 = l1 * cr1 + ps1;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        acc[t][0] *= cr0; acc[t][1] *= cr0; acc[t][2] *= cr1; acc[t][3] *= cr1;
+      }
+      uint32_t f[4][4];
+      chunk_frags(f, s);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma_row_k16<D>(acc, f[kk], Lc, 16 * kk);
+    });
+    const float d0 = fmaxf(quad_sum(l0), 1e-10f), d1 = fmaxf(quad_sum(l1), 1e-10f);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      acc[t][0] /= d0; acc[t][1] /= d0; acc[t][2] /= d1; acc[t][3] /= d1;
+    }
+    // attn_out += tv_h Wvo_h
+    if (V == kNoHead0 && h == 0) continue;
+    store_acc<D>(TS, acc);
+    load_acc<D>(acc, SS);
+    strip_product<D, ONE>(acc, TS, a.Wvo + (size_t)h * D * D, D, wbuf);
+    store_acc<D>(SS, acc);
+  }
+
+  // aggregate, then the GRU with hidden state M
+  zero<D>(acc);
+  strip_product<D, ONE>(acc, SS, a.Wagg, D, wbuf);
+  add_bias<D>(acc, a.bagg);
+  store_acc<D>(SS, acc);  // AGG (every lane's reads of X1 ended at the product's barrier)
+  float hh[NT][4];        // AGG w3_h + b3_h + uhb, later + (r M) uhk
+  zero<D>(hh);
+  strip_product<D, ONE>(hh, SS, a.w3 + 2 * D, 3 * D, wbuf);
+  add_bias<D>(hh, a.b3 + 2 * D);
+  add_bias<D>(hh, a.uhb);
+  zero<D>(acc);
+  strip_product<D, ONE>(acc, SS, a.w3 + D, 3 * D, wbuf);
+  strip_product<D, ONE>(acc, MS, a.u2 + D, 2 * D, wbuf);
+  add_bias<D>(acc, a.b3 + D);
+  add_bias<D>(acc, a.ub2 + D);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {  // r M into TS
+    const float2 ma = *reinterpret_cast<const float2*>(MS + fsw<D>(g, 8 * n + 2 * c));
+    const float2 mb = *reinterpret_cast<const float2*>(MS + fsw<D>(g + 8, 8 * n + 2 * c));
+    acc[n][0] = sigmoidf(acc[n][0]) * ma.x;
+    acc[n][1] = sigmoidf(acc[n][1]) * ma.y;
+    acc[n][2] = sigmoidf(acc[n][2]) * mb.x;
+    acc[n][3] = sigmoidf(acc[n][3]) * mb.y;
+  }
+  store_acc<D>(TS, acc);
+  strip_product<D, ONE>(hh, TS, a.uhk, D, wbuf);
+  zero<D>(acc);
+  strip_product<D, ONE>(acc, SS, a.w3, 3 * D, wbuf);
+  strip_product<D, ONE>(acc, MS, a.u2, 2 * D, wbuf);
+  add_bias<D>(acc, a.b3);
+  add_bias<D>(acc, a.ub2);
+
+  // update, dropout scale, LayerNorm; rows without edges: LayerNorm(M)
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 ma = *reinterpret_cast<const float2*>(MS + fsw<D>(g, 8 * n + 2 * c));
+    const float2 mb = *reinterpret_cast<const float2*>(MS + fsw<D>(g + 8, 8 * n + 2 * c));
+    const float m[4] = {ma.x, ma.y, mb.x, mb.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float z = sigmoidf(acc[n][e]);
+      const float ht = tanhf(hh[n][e]);
+      const bool has = e < 2 ? has0 : has1;
+      acc[n][e] = has ? ((1.f - z) * m[e] + z * ht) * (1.f - a.dropout) : m[e];
+    }
+    sum0 += acc[n][0] + acc[n][1];
+    sum1 += acc[n][2] + acc[n][3];
+  }
+  const float mean0 = quad_sum(sum0) / D, mean1 = quad_sum(sum1) / D;
+  float sq0 = 0.f, sq1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    sq0 += (acc[n][0] - mean0) * (acc[n][0] - mean0) + (acc[n][1] - mean0) * (acc[n][1] - mean0);
+    sq1 += (acc[n][2] - mean1) * (acc[n][2] - mean1) + (acc[n][3] - mean1) * (acc[n][3] - mean1);
+  }
+  const float inv0 = rsqrtf(quad_sum(sq0) / D + a.eps), inv1 = rsqrtf(quad_sum(sq1) / D + a.eps);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * c;
+    const float2 gm = __ldg(reinterpret_cast<const float2*>(a.gamma + col));
+    const float2 bt = __ldg(reinterpret_cast<const float2*>(a.beta + col));
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (!(hf == 0 ? ok0 : ok1)) continue;
+      const float mean = hf == 0 ? mean0 : mean1, inv = hf == 0 ? inv0 : inv1;
+      const float o0 = (acc[n][2 * hf] - mean) * inv * gm.x + bt.x;
+      const float o1 = (acc[n][2 * hf + 1] - mean) * inv * gm.y + bt.y;
+      const size_t at = (row0 + g + 8 * hf) * D + col;
+      if (a.msg_bf16)
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.out) + at) =
+            __floats2bfloat162_rn(o0, o1);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at) = make_float2(o0, o1);
+    }
+  }
+}
+
+template <int D, int V>
+int run_tc(const FusedArgs& a, uint32_t* bits, int heads, cudaStream_t s) {
+  auto kernel = tc_fused_kernel<D, V>;
+  const size_t smem = Plan<D>::kBytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.b + kCtaRows - 1) / kCtaRows, a.nb);
+  kernel<<<grid, kThreads, smem, s>>>(a, bits, heads);
+  return (int)cudaGetLastError();
+}
+
+int run_tc_dispatch(const FusedArgs& a, uint32_t* bits, int d, int heads, int variant,
+                    cudaStream_t s) {
+  if (variant == kOneTf32) return run_tc<128, kOneTf32>(a, bits, heads, s);
+  if (variant == kNoHead0) return run_tc<128, kNoHead0>(a, bits, heads, s);
+  if (d == 128) return run_tc<128, kExact>(a, bits, heads, s);
+  if (d == 64) return run_tc<64, kExact>(a, bits, heads, s);
+  return run_tc<32, kExact>(a, bits, heads, s);
+}
+
+}  // namespace k1tc
+
 }  // namespace
 
 extern "C" int block_dense_attention(const void* L, const void* u, const void* sb,
@@ -530,20 +1056,35 @@ extern "C" int block_dense_attention(const void* L, const void* u, const void* s
 }
 
 // folded: the 15 folded parameter pointers in fold_layer_params order
-// (A, c, Wvo, bvo, bout, Wagg, bagg, w3, b3, u2, ub2, uhk, uhb, gamma, beta)
+// (A, c, Wvo, bvo, bout, Wagg, bagg, w3, b3, u2, ub2, uhk, uhb, gamma, beta).
+// bf16 compute runs tc_fused_kernel with `bits` its edge-bit scratch
+// (block_dense_layer_fused_bits_words); variant 1 or 2 (D = 128 and h = 4
+// only) are its test-only faults. float32 compute runs fused_layer_kernel.
 extern "C" int block_dense_layer_fused(const void* L, const void* msg, const void* wd,
                                        const void* lm, const void* const* folded,
-                                       void* out, int nb, int b, int t, int d, int h,
-                                       int bf16, int msg_bf16, float dropout,
-                                       float eps, void* stream) {
+                                       void* out, void* bits, int nb, int b, int t, int d,
+                                       int h, int bf16, int msg_bf16, int variant,
+                                       float dropout, float eps, void* stream) {
   const float* const* f = reinterpret_cast<const float* const*>(folded);
   FusedArgs a{L, msg, static_cast<const float*>(wd), static_cast<const float*>(lm),
               f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
               f[11], f[12], f[13], f[14], out, nb, b, t, msg_bf16, dropout, eps};
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? fused_d<__nv_bfloat16>(a, d, h, s) : fused_d<float>(a, d, h, s);
+  if (bf16) {
+    if (!rvt::width_ok(d) || h < 1 || h > 8 || bits == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (variant != 0 && !(variant <= 2 && d == 128 && h == 4)) return (int)cudaErrorInvalidValue;
+    return k1tc::run_tc_dispatch(a, static_cast<uint32_t*>(bits), d, h, variant, s);
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return fused_d<float>(a, d, h, s);
 }
 
-extern "C" const char* rvt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// Words of tc_fused_kernel's edge-bit scratch: one per lane, warp, row
+// CTA and table chunk of every block (-1 past the range of an int).
+extern "C" int block_dense_layer_fused_bits_words(int nb, int b, int t) {
+  const long long ctas = (b + k1tc::kCtaRows - 1) / k1tc::kCtaRows;
+  const long long chunks = (t + k1tc::kTab - 1) / k1tc::kTab;
+  const long long words = (long long)nb * ctas * rvt::kWarps * chunks * 32;
+  return words <= 0x7fffffffLL ? (int)words : -1;
 }

@@ -21,11 +21,12 @@
 // at config 5's shape).
 //
 // Design: a persistent grid, one block of 256 threads per partition at a
-// time. K6c at bf16 compute and B <= 256 (tc_signature_kernel) keeps the
-// partition on chip: LN(x) as bf16 rows, A_sig^T and Q in shared memory,
-// the products on the float64 tensor cores (gated_f64tc.cuh), the row
-// sums taken from the registers. The other cases (K6c at float32 compute
-// or B > 256, K6b, K6a) run block_gemm with float64 FMA on the CUDA cores
+// time. K6c and K6b at bf16 compute and B <= 256 (tc_signature_kernel)
+// keep the partition on chip: LN(x) (K6c) or x (K6b) as bf16 rows, A_sig^T
+// and Q in shared memory, the products on the float64 tensor cores
+// (gated_f64tc.cuh), the row sums taken from the registers. The other
+// cases (K6c and K6b at float32 compute or B > 256, and K6a) run
+// block_gemm with float64 FMA on the CUDA cores
 // and keep the block's [B, D] normalized rows, [B, D] projected rows and
 // [B, B] logits in its slice of a global scratch buffer. Each row's
 // reduction has a fixed order, so runs repeat bit for bit. block_gemm's
@@ -90,9 +91,20 @@ __global__ void __launch_bounds__(kThreads) signature_kernel(const SigArgs a) {
   }
 }
 
-// K6c's float64 tensor-core body (bf16 compute, B <= 256): per partition
-// the block reads x once and writes LN(x), rounded to bf16, into H in
-// shared memory beside A_sig^T (bf16, staged once per block). Warp w owns
+// x rounded once to bf16 (round to nearest even) into the bf16 rows of H
+// [Bp, D] in shared memory, rows [B, Bp) zero: K6b's rows, as block_gemm
+// rounds its operands. Ends with a barrier.
+template <int D, typename XT>
+__device__ void x_rows_bf16(const XT* __restrict__ x, bf16* H, int B, int Bp) {
+  for (int i = threadIdx.x; i < Bp * D; i += kThreads)
+    H[i] = __float2bfloat16(i < B * D ? ldf(x + i) : 0.f);
+  __syncthreads();
+}
+
+// The float64 tensor-core body of K6c (LN_X) and K6b (X) (bf16 compute,
+// B <= 256): per partition the block reads x once and writes LN(x) (K6c)
+// or x (K6b), rounded to bf16, into H in shared memory beside A_sig^T
+// (bf16, staged once per block). Warp w owns
 // the 32-row strip [32 w, 32 w + 32): Q = H A_sig on the DMMAs (2x4 tiles
 // of 16x8 per pass), each value rounded once to float32, then to bf16, into
 // the warp's strip of Q in shared memory; then S = Q H^T, 32 columns a
@@ -105,8 +117,9 @@ constexpr size_t tc_sig_smem(int bp) {
   return (size_t)(2 * bp * D + D * D) * sizeof(bf16) + (size_t)bp * sizeof(float);
 }
 
-template <int D, typename XT, bool F32ACC>
+template <int D, typename XT, bool F32ACC, int MODE>
 __global__ void __launch_bounds__(kThreads) tc_signature_kernel(const SigArgs a) {
+  static_assert(MODE == kLnX || MODE == kX, "the tensor-core body takes K6c and K6b");
   extern __shared__ uint4 smem_raw[];
   const int b = a.b, bp = (b + 31) & ~31;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -122,8 +135,11 @@ __global__ void __launch_bounds__(kThreads) tc_signature_kernel(const SigArgs a)
     __syncthreads();  // the previous partition's H and pad are no longer read
     for (int i = threadIdx.x; i < bp; i += kThreads)
       pad[i] = i < b ? a.pad[(size_t)k * b + i] : 0.f;
-    ln_rows_bf16<D>(static_cast<const XT*>(a.x) + (size_t)k * b * D, H, a.gamma, a.beta, b, bp,
-                    1e-5f);
+    const XT* xk = static_cast<const XT*>(a.x) + (size_t)k * b * D;
+    if constexpr (MODE == kLnX)
+      ln_rows_bf16<D>(xk, H, a.gamma, a.beta, b, bp, 1e-5f);
+    else
+      x_rows_bf16<D>(xk, H, b, bp);
     const int r0 = 32 * warp;
     if (r0 >= b) continue;
     double acc[2][4][4];  // 2 x 4 tiles of 16x8: rows r0 + 16 i + 8 h + g
@@ -180,9 +196,9 @@ __global__ void __launch_bounds__(kThreads) tc_signature_kernel(const SigArgs a)
   }
 }
 
-template <int D, typename XT, bool F32ACC = false>
+template <int MODE, int D, typename XT, bool F32ACC = false>
 int run_tc(const SigArgs& a, int grid, cudaStream_t s) {
-  auto kernel = tc_signature_kernel<D, XT, F32ACC>;
+  auto kernel = tc_signature_kernel<D, XT, F32ACC, MODE>;
   const size_t smem = tc_sig_smem<D>((a.b + 31) & ~31);
   if (const int rc = allow_smem(kernel, smem)) return rc;
   const int g = resident_grid(kernel, grid, smem);
@@ -190,11 +206,11 @@ int run_tc(const SigArgs& a, int grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename XT>
+template <int MODE, typename XT>
 int run_tc_width(const SigArgs& a, int grid, cudaStream_t s) {
-  if (a.d == 32) return run_tc<32, XT>(a, grid, s);
-  if (a.d == 64) return run_tc<64, XT>(a, grid, s);
-  return run_tc<128, XT>(a, grid, s);
+  if (a.d == 32) return run_tc<MODE, 32, XT>(a, grid, s);
+  if (a.d == 64) return run_tc<MODE, 64, XT>(a, grid, s);
+  return run_tc<MODE, 128, XT>(a, grid, s);
 }
 
 template <int MODE, typename XT, bool BF16>
@@ -213,13 +229,27 @@ int run_types(const SigArgs& a, int grid, int x_bf16, int compute_bf16, cudaStre
   return compute_bf16 ? run<MODE, float, true>(a, grid, s) : run<MODE, float, false>(a, grid, s);
 }
 
+// The tensor-core body (tensor_core: bf16 compute, b <= 256, no scratch)
+// or block_gemm's; variant 1 (the tensor-core body at D = 128 on float32 x
+// only) is the test-only fault F32ACC.
+template <int MODE>
+int run_sig(const SigArgs& a, int grid, int x_bf16, int compute_bf16, int tensor_core,
+            int variant, cudaStream_t s) {
+  if (tensor_core && (!compute_bf16 || a.b > kDmmaMaxB)) return (int)cudaErrorInvalidValue;
+  if (variant != 0 && !(variant == 1 && tensor_core && a.d == 128 && !x_bf16))
+    return (int)cudaErrorInvalidValue;
+  if (variant == 1) return run_tc<MODE, 128, float, true>(a, grid, s);
+  if (tensor_core)
+    return x_bf16 ? run_tc_width<MODE, __nv_bfloat16>(a, grid, s)
+                  : run_tc_width<MODE, float>(a, grid, s);
+  return run_types<MODE>(a, grid, x_bf16, compute_bf16, s);
+}
+
 bool shape_ok(int b, int d) { return b >= 1 && b <= kMaxB && width_ok(d); }
 
 }  // namespace
 
-// K6c. tensor_core (bf16 compute, b <= 256, no scratch) takes the float64
-// tensor-core body, else block_gemm's; variant 1 (the tensor-core body at
-// D = 128 on float32 x only) is the test-only fault F32ACC.
+// K6c and K6b: tensor_core and variant as run_sig says.
 extern "C" int block_gate_signature_ln_x(const void* x, const void* pad, const void* A_sig,
                                          const void* gamma, const void* beta, void* rsum,
                                          void* rcnt, void* scratch, int nb, int b, int d,
@@ -227,29 +257,24 @@ extern "C" int block_gate_signature_ln_x(const void* x, const void* pad, const v
                                          int tensor_core, int variant, float eps,
                                          void* stream) {
   if (!shape_ok(b, d)) return (int)cudaErrorInvalidValue;
-  if (tensor_core && (!compute_bf16 || b > kDmmaMaxB)) return (int)cudaErrorInvalidValue;
-  if (variant != 0 && !(variant == 1 && tensor_core && d == 128 && !x_bf16))
-    return (int)cudaErrorInvalidValue;
   SigArgs a{x, nullptr, static_cast<const float*>(pad), static_cast<const float*>(A_sig),
             static_cast<const float*>(gamma), static_cast<const float*>(beta),
             static_cast<float*>(rsum), static_cast<float*>(rcnt),
             static_cast<float*>(scratch), nb, b, d, eps, 1.f};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (variant == 1) return run_tc<128, float, true>(a, grid, s);
-  if (tensor_core)
-    return x_bf16 ? run_tc_width<__nv_bfloat16>(a, grid, s) : run_tc_width<float>(a, grid, s);
-  return run_types<kLnX>(a, grid, x_bf16, compute_bf16, s);
+  return run_sig<kLnX>(a, grid, x_bf16, compute_bf16, tensor_core, variant,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int block_gate_signature_x(const void* x, const void* pad, const void* A_sig,
                                       void* rsum, void* rcnt, void* scratch, int nb, int b,
-                                      int d, int grid, int x_bf16, int compute_bf16, float eps,
-                                      void* stream) {
+                                      int d, int grid, int x_bf16, int compute_bf16,
+                                      int tensor_core, int variant, float eps, void* stream) {
   if (!shape_ok(b, d)) return (int)cudaErrorInvalidValue;
   SigArgs a{x, nullptr, static_cast<const float*>(pad), static_cast<const float*>(A_sig),
             nullptr, nullptr, static_cast<float*>(rsum), static_cast<float*>(rcnt),
             static_cast<float*>(scratch), nb, b, d, eps, 1.f};
-  return run_types<kX>(a, grid, x_bf16, compute_bf16, static_cast<cudaStream_t>(stream));
+  return run_sig<kX>(a, grid, x_bf16, compute_bf16, tensor_core, variant,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // q and k share one type (float32 or bf16)

@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the gated graph transformer's kernels
 // (gated_block_layer.cu: the fused layer K4a/K4b; gated_block_mha.cu: the
-// gated MHA K5a and its recompute backward K5b).
+// gated MHA K5a and its recompute backward K5b) and of the fused
+// RuvectorLayer's tensor-core body (block_dense_attn.cu: K1).
 //
 // mma.sync m16n8k16 with bf16 operands and float32 sums, the operands read
 // from shared memory with ldmatrix (rows XOR-swizzled so that the eight
@@ -8,7 +9,9 @@
 // of [D, D] weight tiles, and the pieces of a softmax over 32-column
 // chunks of scores that stay in registers: a warp owns a 16-row strip,
 // whose accumulators (the m16n8 layout) are repacked as the A operand of
-// the next product (the m16k16 layout) without a shuffle.
+// the next product (the m16k16 layout) without a shuffle. Float32-grade
+// products run as 3xTF32 on mma.sync m16n8k8 (split_tf32 and the row
+// helpers at the end).
 
 #pragma once
 
@@ -187,6 +190,121 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Float32 products as 3xTF32: a float32 x splits into hi, x rounded to
+// tf32's 11 significant bits (an integer add and mask on its bits), and lo
+// = x - hi (exact, |lo| <= 2^-11 |x|), of which the tensor cores read the
+// top 11 significant bits; a product sums lo*hi + hi*lo + hi*hi on
+// mma.sync m16n8k8 (tf32 operands, float32 sums). What it drops, lo*lo
+// and the bits of lo past its 11th, is below 2^-21 of the product, the
+// grade of a float32 FMA (2^-24), where one pass of TF32 keeps 2^-11. An
+// operand that holds bf16 values (K5b's Xc and bf16 weight tiles) is exact in
+// tf32: its lo is 0 and its products take two passes.
+//
+// Fragments of m16n8k8: the tf32 A operand of a strip takes its k pair
+// (2c, 2c+1) where the PTX layout has (c, c + 4), and B the same pair, so
+// that the accumulators of one 16x8 tile (columns 2c, 2c+1 of each thread)
+// are the A operand of the next product's k8 block as they stand.
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;  // 11 significant bits, ties away from 0
+  lo = __float_as_uint(x - __uint_as_float(hi));      // exact; the tensor cores read its tf32 bits
+}
+
+// c += a b for one 16x8 tile, k = 8: tf32 operands, float32 sums
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A operand (a0: row g k 2c, a1: row g+8 k 2c, a2: row g k 2c+1, a3:
+// row g+8 k 2c+1) split into hi and lo.
+struct Tf32A {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ Tf32A split_a(float a0, float a1, float a2, float a3) {
+  Tf32A r;
+  split_tf32(a0, r.hi[0], r.lo[0]);
+  split_tf32(a1, r.hi[1], r.lo[1]);
+  split_tf32(a2, r.hi[2], r.lo[2]);
+  split_tf32(a3, r.hi[3], r.lo[3]);
+  return r;
+}
+
+// k8 block t of a strip's accumulators c[t] as an A operand
+__device__ __forceinline__ Tf32A acc_as_a(const float (&c)[4]) {
+  return split_a(c[0], c[2], c[1], c[3]);
+}
+
+// c[n] += A B_n over the NT 16x8 tiles of a strip, B_n = b(n): a float2
+// (k 2c, 2c+1 of column 8n + g) for mma3_row (three passes: lo hi, hi lo,
+// hi hi), mma2a_row (A exact: A lo, A hi) and a pair of tf32 bit patterns
+// (exact) for mma2b_row (A lo B, A hi B). The passes go over kGroup tiles
+// at a time, so that a product does not wait on the one before it.
+constexpr int kGroup = 4;
+
+template <int NT, bool ONE = false, typename FB>
+__device__ __forceinline__ void mma3_row(float (&c)[NT][4], const Tf32A& a, FB b) {
+#pragma unroll
+  for (int n0 = 0; n0 < NT; n0 += kGroup) {
+    uint32_t h[kGroup][2], l[kGroup][2];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const float2 v = b(n0 + u);
+      split_tf32(v.x, h[u][0], l[u][0]);
+      split_tf32(v.y, h[u][1], l[u][1]);
+    }
+    if constexpr (!ONE) {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) mma1688(c[n0 + u], a.lo, h[u][0], h[u][1]);
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) mma1688(c[n0 + u], a.hi, l[u][0], l[u][1]);
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) mma1688(c[n0 + u], a.hi, h[u][0], h[u][1]);
+  }
+}
+
+template <int NT, bool ONE = false, typename FB>
+__device__ __forceinline__ void mma2a_row(float (&c)[NT][4], const uint32_t (&a)[4], FB b) {
+#pragma unroll
+  for (int n0 = 0; n0 < NT; n0 += kGroup) {
+    uint32_t h[kGroup][2], l[kGroup][2];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const float2 v = b(n0 + u);
+      split_tf32(v.x, h[u][0], l[u][0]);
+      split_tf32(v.y, h[u][1], l[u][1]);
+    }
+    if constexpr (!ONE) {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) mma1688(c[n0 + u], a, l[u][0], l[u][1]);
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) mma1688(c[n0 + u], a, h[u][0], h[u][1]);
+  }
+}
+
+template <int NT, bool ONE = false, typename FB>
+__device__ __forceinline__ void mma2b_row(float (&c)[NT][4], const Tf32A& a, FB b) {
+#pragma unroll
+  for (int n0 = 0; n0 < NT; n0 += kGroup) {
+    uint2 v[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) v[u] = b(n0 + u);
+    if constexpr (!ONE) {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) mma1688(c[n0 + u], a.lo, v[u].x, v[u].y);
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) mma1688(c[n0 + u], a.hi, v[u].x, v[u].y);
+  }
 }
 
 }  // namespace rvt

@@ -37,11 +37,12 @@ SIGNATURES = {
     },
     "block_dense_attn": {
         "block_dense_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
-        "block_dense_layer_fused": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
+        "block_dense_layer_fused": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
+        "block_dense_layer_fused_bits_words": [_I] * 3,
     },
     "gated_block_attn": {
         "block_gate_signature_ln_x": [_P] * 8 + [_I] * 8 + [_F, _P],
-        "block_gate_signature_x": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "block_gate_signature_x": [_P] * 6 + [_I] * 8 + [_F, _P],
         "block_gate_signature": [_P] * 6 + [_I] * 5 + [_F, _F, _P],
     },
     "mincut_gate_block": {

@@ -3,13 +3,14 @@ csrc/block_dense_attn.cu and their plain PyTorch versions.
 
 Ports of ruvector_tpu/ops/pallas/block_dense_attn.py:81
 block_dense_attention and :246 block_dense_layer_fused. The JAX `tile`
-argument does not carry over: the CUDA kernels pick their own 16-row tile
+argument does not carry over: the CUDA kernels pick their own row tile
 and mask a ragged block edge themselves, so any B works. K1's `scale` is
 dropped too: the folded A and c arrive pre-scaled (fold_layer_params).
 
 bf16 compute (L in bfloat16) rounds where the JAX kernels round: u (K2
 input; K1 after M A_h + c_h), the softmax weights before the weights-by-L
-product, and wd before wd.L. Sums, GRU and LayerNorm math stay float32.
+product, and wd before wd.L. Sums, GRU and LayerNorm math stay float32
+(in K1's tensor-core body, its float32 products run as 3xTF32).
 """
 
 from __future__ import annotations
@@ -158,8 +159,23 @@ def _folded_shapes(heads: int, d: int) -> dict:
                 ub2=(1, 2 * d), uhk=dd, uhb=(1, d), gamma=(1, d), beta=(1, d))
 
 
+# K1's test-only variants of the tensor-core body (csrc/block_dense_attn.cu,
+# built at D = 128 for H = 4 only), faults that the card tests and
+# chip_smoke.py's controls must reject: single-pass TF32 in the float32
+# products, and head 0's tv_0 Wvo_0 left out of attn_out
+K1_VARIANTS = {"exact": 0, "one_tf32": 1, "no_head0": 2}
+
+
+def k1_body(cdt: torch.dtype) -> str:
+    """Which body of K1 runs at compute type `cdt`: "tensor_core" at bf16
+    (every width, head count, B and T the kernel takes: the table streams
+    in chunks) or "cuda_core" at float32, whose 1e-4 tolerance single-pass
+    TF32 products would break."""
+    return "tensor_core" if cdt == torch.bfloat16 else "cuda_core"
+
+
 def block_dense_layer_fused(L, msgf, wd, folded, lm=None, *, dropout: float,
-                            eps: float) -> torch.Tensor:
+                            eps: float, variant: str = "exact") -> torch.Tensor:
     """One-kernel RuvectorLayer forward over local tables.
 
     L [nB, T, D] local tables (compute dtype), msgf [nB, B, D] message rows
@@ -167,14 +183,23 @@ def block_dense_layer_fused(L, msgf, wd, folded, lm=None, *, dropout: float,
     math stays float32), wd [nB, B, T] float32, folded: fold_layer_params
     output (float32), lm optional [nB, B, T] float32. Returns [nB, B, D] in
     msgf's dtype. CPU tensors take the plain version; CUDA tensors launch
-    the kernel.
+    the kernel, whose body follows the compute type (`k1_body`). `variant`
+    other than "exact" runs a fault planted in the tensor-core body
+    (K1_VARIANTS), for controls only.
     """
+    name = "block_dense_layer_fused"
+    _lib.require(variant in K1_VARIANTS, f"{name}: unknown variant {variant!r}")
     if L.device.type == "cpu":
+        _lib.require(variant == "exact", f"{name}: variant {variant!r} runs on the card only")
         return block_dense_layer_fused_reference(L, msgf, wd, folded, lm,
                                                  dropout=dropout, eps=eps)
     nb, b, d = msgf.shape
     heads = folded["A"].shape[0]
     t = _check_table(L, wd, lm, nb, b, d, heads)
+    tc = k1_body(L.dtype) == "tensor_core"
+    _lib.require(variant == "exact" or (tc and d == 128 and heads == 4),
+                 f"{name}: variant {variant!r} is built for the tensor-core body at D=128, "
+                 f"H=4 only")
     _lib.require(msgf.dtype in COMPUTE_DTYPES and msgf.device == L.device
                  and msgf.is_contiguous(), "msgf must be contiguous float32 or bfloat16")
     for key, shape in _folded_shapes(heads, d).items():
@@ -188,13 +213,19 @@ def block_dense_layer_fused(L, msgf, wd, folded, lm=None, *, dropout: float,
     ptrs = (ctypes.c_void_p * len(FOLDED_KEYS))(
         *(folded[key].data_ptr() for key in FOLDED_KEYS))
     lib = _lib.load("block_dense_attn")
+    bits = None
+    if tc:  # the tensor-core body's edge bits, written and read back in one launch
+        words = lib.block_dense_layer_fused_bits_words(nb, b, t)
+        _lib.require(words >= 0, f"{name}: edge-bit scratch too large for {nb} x {b} x {t}")
+        bits = torch.empty(words, dtype=torch.int32, device=L.device)
     rc = lib.block_dense_layer_fused(
         L.data_ptr(), msgf.data_ptr(), wd.data_ptr(),
         None if lm is None else lm.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(),
-        nb, b, t, d, heads, int(L.dtype == torch.bfloat16),
-        int(msgf.dtype == torch.bfloat16), dropout, eps, _lib.stream_handle(L))
+        None if bits is None else bits.data_ptr(), nb, b, t, d, heads,
+        int(tc), int(msgf.dtype == torch.bfloat16), K1_VARIANTS[variant], dropout, eps,
+        _lib.stream_handle(L))
     block_dense_layer_fused.launches += 1
-    _lib.check(lib, rc, "block_dense_layer_fused")
+    _lib.check(lib, rc, name)
     return out
 
 

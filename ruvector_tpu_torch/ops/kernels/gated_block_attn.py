@@ -215,18 +215,18 @@ def persistent_grid(device: torch.device, nb: int, per_sm: int) -> int:
 
 SIG_CTAS_PER_SM = 2
 DMMA_MAX_B = 256  # the largest partition of the float64 tensor-core bodies (kDmmaMaxB)
-# K6c's test-only variants of the tensor-core body (csrc/gated_block_attn.cu),
-# faults that the card tests and chip_smoke.py's controls must reject; built
-# for D = 128 on float32 x only
+# K6c's and K6b's test-only variants of the tensor-core body
+# (csrc/gated_block_attn.cu), faults that the card tests and chip_smoke.py's
+# controls must reject; built for D = 128 on float32 x only
 SIG_VARIANTS = {"exact": 0, "f32_acc": 1}
 
 
 def sig_body(b: int, compute_bf16: bool) -> str:
-    """Which body of K6c runs a partition of b rows: "tensor_core" (bf16
-    compute, b <= DMMA_MAX_B: the logits on the float64 tensor cores, the
-    partition's rows in shared memory) or "block_gemm" (float32 compute,
-    and b in (256, 512], whose bf16 rows and logits do not fit in shared
-    memory)."""
+    """Which body of K6c or K6b runs a partition of b rows: "tensor_core"
+    (bf16 compute, b <= DMMA_MAX_B: the logits on the float64 tensor cores,
+    the partition's rows in shared memory) or "block_gemm" (float32
+    compute, and b in (256, 512], whose bf16 rows and logits do not fit in
+    shared memory)."""
     return "tensor_core" if compute_bf16 and b <= DMMA_MAX_B else "block_gemm"
 
 
@@ -253,6 +253,23 @@ def _signature_launch(wrapper, entry, x, pad, *args, extra=(), scratch: bool = T
     return rsum, rcnt
 
 
+def _check_variant(name: str, variant: str, x, compute_bf16: bool) -> bool:
+    """Checks K6c's or K6b's `variant` (faults run on the card only, in the
+    tensor-core body at D=128 on float32 x) and returns whether the
+    tensor-core body runs (`sig_body`; False on CPU tensors, which take
+    the plain version)."""
+    _lib.require(variant in SIG_VARIANTS, f"{name}: unknown variant {variant!r}")
+    if x.device.type == "cpu":
+        _lib.require(variant == "exact", f"{name}: variant {variant!r} runs on the card only")
+        return False
+    _, b, d = x.shape
+    tc = sig_body(b, compute_bf16) == "tensor_core"
+    _lib.require(variant == "exact" or (tc and d == 128 and x.dtype == torch.float32),
+                 f"{name}: variant {variant!r} is built for the tensor-core body at D=128 "
+                 f"on float32 x only")
+    return tc
+
+
 def block_gate_signature_ln_x(x, pad, A_sig, gamma, beta, *, eps: float,
                               compute_bf16: bool, variant: str = "exact"):
     """Gate-signature reduction straight from the residual stream (K6c).
@@ -268,17 +285,12 @@ def block_gate_signature_ln_x(x, pad, A_sig, gamma, beta, *, eps: float,
     only.
     """
     name = "block_gate_signature_ln_x"
-    _lib.require(variant in SIG_VARIANTS, f"{name}: unknown variant {variant!r}")
     if x.device.type == "cpu":
-        _lib.require(variant == "exact", f"{name}: variant {variant!r} runs on the card only")
+        _check_variant(name, variant, x, compute_bf16)
         return block_gate_signature_ln_x_reference(x, pad, A_sig, gamma, beta, eps=eps,
                                                    compute_bf16=compute_bf16)
     check_rows(name, x, pad, (gamma, beta), (A_sig,))
-    nb, b, d = x.shape
-    tc = sig_body(b, compute_bf16) == "tensor_core"
-    _lib.require(variant == "exact" or (tc and d == 128 and x.dtype == torch.float32),
-                 f"{name}: variant {variant!r} is built for the tensor-core body at D=128 "
-                 f"on float32 x only")
+    tc = _check_variant(name, variant, x, compute_bf16)
     return _signature_launch(block_gate_signature_ln_x, name, x, pad, A_sig, gamma, beta,
                              extra=(int(x.dtype == torch.bfloat16), int(compute_bf16), int(tc),
                                     SIG_VARIANTS[variant], eps), scratch=not tc)
@@ -287,21 +299,28 @@ def block_gate_signature_ln_x(x, pad, A_sig, gamma, beta, *, eps: float,
 block_gate_signature_ln_x.launches = 0
 
 
-def block_gate_signature_x(x, pad, A_sig, *, eps: float, compute_bf16: bool):
+def block_gate_signature_x(x, pad, A_sig, *, eps: float, compute_bf16: bool,
+                           variant: str = "exact"):
     """Gate-signature reduction from normalized features, no LN (K6b).
 
     x [nB, B, D] (float32 or bfloat16), pad [nB, B] float32, A_sig [D, D]
     float32. Per block s = (x A_sig) x^T with compute-dtype operands, and
     per row the sum and count of s > eps over valid pairs. Returns (rsum,
     rcnt), float32 [nB, B] each. CPU tensors take the plain version; CUDA
-    tensors launch the kernel.
+    tensors launch the kernel, whose body follows the shape and compute
+    type (`sig_body`, as K6c's). `variant` other than "exact" runs a fault
+    planted in the tensor-core body (SIG_VARIANTS), for controls only.
     """
+    name = "block_gate_signature_x"
     if x.device.type == "cpu":
+        _check_variant(name, variant, x, compute_bf16)
         return block_gate_signature_x_reference(x, pad, A_sig, eps=eps,
                                                 compute_bf16=compute_bf16)
-    check_rows("block_gate_signature_x", x, pad, (), (A_sig,))
-    return _signature_launch(block_gate_signature_x, "block_gate_signature_x", x, pad, A_sig,
-                             extra=(int(x.dtype == torch.bfloat16), int(compute_bf16), eps))
+    check_rows(name, x, pad, (), (A_sig,))
+    tc = _check_variant(name, variant, x, compute_bf16)
+    return _signature_launch(block_gate_signature_x, name, x, pad, A_sig,
+                             extra=(int(x.dtype == torch.bfloat16), int(compute_bf16), int(tc),
+                                    SIG_VARIANTS[variant], eps), scratch=not tc)
 
 
 block_gate_signature_x.launches = 0

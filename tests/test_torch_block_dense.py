@@ -34,9 +34,11 @@ from ruvector_tpu_torch.nn.block_dense_layer import (
     ruvector_layer_apply_block_dense_fused,
 )
 from ruvector_tpu_torch.nn.ruvector_layer import RuvectorLayerConfig
+from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
     block_dense_layer_fused,
+    k1_body,
 )
 
 F32_TOL = 2e-5
@@ -223,3 +225,53 @@ def test_k1_plain_version_raw_inputs(cdt, with_lm):
         torch.from_numpy(L).to(tdt), torch.from_numpy(msg), torch.from_numpy(wd), tfolded,
         None if lm is None else torch.from_numpy(lm), dropout=0.1, eps=1e-5)
     _compare(got, want, bf16=cdt == "bfloat16")
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_k1_plain_version_one_edge_rows(cdt, d):
+    """One edge per row with wd = 1.0 and a table of bf16 values (the
+    float32-grade control of the card's K1): p = 1, so the attention is
+    exact in either compute type and the plain K1 meets JAX's K1 at the
+    f32 tolerance."""
+    rng = np.random.default_rng(6)
+    nb, b, t, h = 2, 36, 128, 4
+    wd = np.zeros((nb, b, t), np.float32)
+    np.put_along_axis(wd, rng.integers(0, t, (nb, b, 1)), 1.0, axis=2)
+    L = np.asarray(jnp.asarray(rng.normal(size=(nb, t, d)), jnp.bfloat16), np.float32)
+    msg = rng.normal(size=(nb, b, d)).astype(np.float32)
+    jdt = jnp.bfloat16 if cdt == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if cdt == "bfloat16" else torch.float32
+    jp = jinit(jax.random.key(6), JCfg(d, d, heads=h))
+    folded = jfold(jp, JCfg(d, d, heads=h))
+    want = jkernel(jnp.asarray(L, jdt), jnp.asarray(msg), jnp.asarray(wd), folded, None,
+                   scale=0.25, dropout=0.1, eps=1e-5, tile=b)
+    tfolded = {k: torch.from_numpy(np.array(v)) for k, v in folded.items()}
+    got = block_dense_layer_fused(torch.from_numpy(L).to(tdt), torch.from_numpy(msg),
+                                  torch.from_numpy(wd), tfolded, dropout=0.1, eps=1e-5)
+    _compare(got, want)
+
+
+def test_k1_body_follows_compute_type():
+    """bf16 compute runs K1's tensor-core body, float32 compute its
+    CUDA-core body."""
+    assert k1_body(torch.bfloat16) == "tensor_core"
+    assert k1_body(torch.float32) == "cuda_core"
+
+
+@pytest.mark.parametrize("variant", ["one_tf32", "no_head0", "unknown"])
+def test_k1_variants_run_on_the_card_only(variant):
+    """K1's planted faults are card-only instances: on CPU tensors the
+    wrapper raises instead of taking the plain version, and counts no
+    launch."""
+    rng, (nb, b, t, d, h), L, wd, _, _, _ = _kernel_inputs(3, "bfloat16", False)
+    jp = jinit(jax.random.key(3), JCfg(d, d, heads=h))
+    tfolded = {k: torch.from_numpy(np.array(v))
+               for k, v in jfold(jp, JCfg(d, d, heads=h)).items()}
+    msg = torch.from_numpy(rng.normal(size=(nb, b, d)).astype(np.float32))
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        block_dense_layer_fused(torch.from_numpy(L).to(torch.bfloat16), msg,
+                                torch.from_numpy(wd), tfolded, dropout=0.1, eps=1e-5,
+                                variant=variant)
+    assert launch_counts()["block_dense_layer_fused"] == 0

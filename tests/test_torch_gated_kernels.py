@@ -29,6 +29,7 @@ from ruvector_tpu.graph_transformer.gated import _fold_sig_params as jfold_sig
 from ruvector_tpu.graph_transformer.gated import gated_graph_transformer_init as jinit
 from ruvector_tpu.graph_transformer.gated import pack_keep as jpack
 from ruvector_tpu.ops.pallas.gated_block_attn import block_gate_signature_ln_x as jk6c
+from ruvector_tpu.ops.pallas.gated_block_attn import block_gate_signature_x as jk6b
 from ruvector_tpu.ops.pallas.gated_block_attn import fold_gated_attention_params as jfold_attn
 from ruvector_tpu.ops.pallas.gated_block_layer import fold_gated_layer_params as jfold
 from ruvector_tpu.ops.pallas.gated_block_layer import gated_block_layer as jk4a
@@ -41,6 +42,7 @@ from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     block_gate_signature_ln_x,
     block_gate_signature_ln_x_reference,
+    block_gate_signature_x,
     fold_gated_attention_params,
     head_concat,
     layer_norm_rows,
@@ -212,6 +214,34 @@ def test_gate_wrappers_take_the_plain_version_on_the_cpu(variant):
                                          compute_bf16=True, variant=variant)
     counts = launch_counts()
     assert counts["block_gate_signature_ln_x"] == counts["mincut_gate_block_from_x"] == 0
+
+
+@pytest.mark.parametrize("variant", ["exact", "f32_acc"])
+def test_signature_x_at_the_halo_layout(variant):
+    """K6b at the halo layout's B = 240 (B % 32 != 0, the only layout that
+    calls it): bf16 compute takes the float64 tensor-core body on the card
+    and float32 compute block_gemm's; on CPU tensors the wrapper takes the
+    plain version, which agrees with JAX's K6b in interpret mode, and its
+    planted fault, a card-only instance, raises."""
+    assert sig_body(240, True) == "tensor_core" and sig_body(240, False) == "block_gemm"
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, 240, 32)).astype(np.float32)
+    pad = np.ones((2, 240), np.float32)
+    pad[1, 200:] = 0.0
+    A = (0.1 * rng.normal(size=(32, 32))).astype(np.float32)
+    x_t, pad_t, A_t = (torch.from_numpy(v) for v in (x, pad, A))
+    reset_launch_counts()
+    if variant == "exact":
+        rsum, rcnt = block_gate_signature_x(x_t, pad_t, A_t, eps=0.01, compute_bf16=True)
+        jrsum, jrcnt = jk6b(jnp.asarray(x), jnp.asarray(pad), jnp.asarray(A), eps=0.01,
+                            compute_bf16=True)
+        assert float(rcnt.sum()) > 0 and float(rcnt[1, 200:].sum()) == 0.0
+        _sig_close(rsum, rcnt, jrsum, jrcnt, True)
+    else:
+        with pytest.raises(ValueError):
+            block_gate_signature_x(x_t, pad_t, A_t, eps=0.01, compute_bf16=True,
+                                   variant=variant)
+    assert launch_counts()["block_gate_signature_x"] == 0
 
 
 def test_mha_tiles_are_the_heads_rounded_to_bf16():

@@ -11,7 +11,9 @@ another order; bf16 5e-2, the kernels round softmax weights against a
 running max where the plain versions use the row max. Gradients (K5b)
 are held to the same bounds relative to each tensor's largest magnitude;
 signature counts (K6a/K6b/K6c) and gate masks (K7) must be equal. K8 and
-K9 (f32 sums of up to 300 terms) are held to f32 1e-4.
+K9 (f32 sums of up to 300 terms) are held to f32 1e-4. K1's tensor-core
+body is held to max and mean limits: bf16 5e-2 / 5e-3, and f32 1e-4 /
+1e-5 on one-edge rows, where its attention is exact.
 """
 
 import dataclasses
@@ -30,12 +32,14 @@ from ruvector_tpu_torch.graph_transformer import (
     gated_graph_transformer_step,
 )
 from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from ruvector_tpu_torch.ops.kernels import gated_block_attn
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     _folded_shapes,
     block_dense_attention,
     block_dense_attention_reference,
     block_dense_layer_fused,
     block_dense_layer_fused_reference,
+    k1_body,
 )
 from ruvector_tpu_torch.ops.kernels.flash_neighbor import (
     flash_neighbor_attention,
@@ -135,6 +139,87 @@ def test_block_dense_layer_fused_kernel(card, cdt, msg_dtype):
     _close(got, block_dense_layer_fused_reference(L, msg, wd, folded, lm, dropout=0.1,
                                                   eps=1e-5), tol_dtype)
     assert launch_counts()["block_dense_layer_fused"] == 1
+
+
+# K1's tensor-core body against its plain version, (max, mean) of the
+# absolute error (chip_smoke.py's TOL): bf16 compute, and the float32 grade
+# that its 3xTF32 products keep where the attention is exact
+K1_BF16_TOL, K1_F32_TOL = (5e-2, 5e-3), (1e-4, 1e-5)
+
+
+def _within(got, want, tol) -> bool:
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    return float(err.max()) <= tol[0] and float(err.mean()) <= tol[1]
+
+
+@pytest.mark.parametrize("b, t, d, h, msg_dtype, with_lm", [
+    (45, 200, 128, 4, torch.float32, True),
+    (45, 200, 128, 1, torch.bfloat16, False),
+    (504, 1024, 128, 2, torch.float32, False),
+    (504, 1024, 128, 8, torch.bfloat16, True),
+    (504, 200, 128, 4, torch.bfloat16, False),
+    (512, 512, 128, 4, torch.float32, False),
+    (45, 1024, 64, 4, torch.float32, True),
+    (504, 200, 64, 8, torch.bfloat16, False),
+    (504, 200, 32, 2, torch.bfloat16, True),
+    (45, 1024, 32, 1, torch.float32, False),
+])
+def test_block_dense_layer_fused_tensor_core_body(card, b, t, d, h, msg_dtype, with_lm):
+    """K1 at bf16 compute runs its tensor-core body (`k1_body`): ragged B
+    (45, 504), T = 200, 512 and 1024, with and without lm, msg in float32
+    and bf16, dropout 0.1, a degree-0 row and a 1e-7 edge, D = 128 with
+    H in {1, 2, 4, 8} and D = 64 and 32; within the bf16 limits."""
+    L, _, _, wd, lm, msg, folded = _block_inputs(card, torch.bfloat16, nb=2, b=b, t=t, d=d,
+                                                 h=h)
+    lm = lm if with_lm else None
+    msg = msg.to(msg_dtype)
+    assert k1_body(torch.bfloat16) == "tensor_core"
+    got = block_dense_layer_fused(L, msg, wd, folded, lm, dropout=0.1, eps=1e-5)
+    assert got.dtype == msg_dtype
+    assert _within(got, block_dense_layer_fused_reference(L, msg, wd, folded, lm, dropout=0.1,
+                                                          eps=1e-5), K1_BF16_TOL)
+    assert launch_counts()["block_dense_layer_fused"] == 1
+
+
+def _one_edge_inputs(dev, nb=2, b=200, t=256, d=128, h=4):
+    """One edge per row with wd = 1.0 and a table of bf16 values: p = 1 and
+    the attention's outputs (tv_h = wm = the edge's table row) are exact on
+    both sides, so what is left is the epilogue's float32 products."""
+    g = torch.Generator().manual_seed(5)
+    wd = torch.zeros(nb, b, t)
+    wd.scatter_(2, torch.randint(0, t, (nb, b, 1), generator=g), 1.0)
+    L = torch.randn(nb, t, d, generator=g).to(torch.bfloat16)
+    msg = torch.randn(nb, b, d, generator=g)
+    folded = {k: torch.randn(s, generator=g) / d ** 0.5 for k, s in _folded_shapes(h, d).items()}
+    return L.to(dev), msg.to(dev), wd.to(dev), {k: v.to(dev) for k, v in folded.items()}
+
+
+def test_block_dense_layer_fused_is_float32_grade(card):
+    """On one-edge rows the tensor-core K1 meets the float32 limits 1e-4 /
+    1e-5: its epilogue's products are 3xTF32, float32 grade."""
+    L, msg, wd, folded = _one_edge_inputs(card)
+    want = block_dense_layer_fused_reference(L, msg, wd, folded, dropout=0.1, eps=1e-5)
+    assert _within(block_dense_layer_fused(L, msg, wd, folded, dropout=0.1, eps=1e-5), want,
+                   K1_F32_TOL)
+
+
+def test_block_dense_layer_fused_faults_are_rejected(card):
+    """Two faults planted in K1's tensor-core body (test-only instances at
+    D=128, H=4): single-pass TF32 misses the float32 limits on one-edge
+    rows, and head 0 left out of attn_out misses the bf16 limits."""
+    L, msg, wd, folded = _one_edge_inputs(card)
+    want = block_dense_layer_fused_reference(L, msg, wd, folded, dropout=0.1, eps=1e-5)
+    assert not _within(block_dense_layer_fused(L, msg, wd, folded, dropout=0.1, eps=1e-5,
+                                               variant="one_tf32"), want, K1_F32_TOL)
+    L, _, _, wd, lm, msg, folded = _block_inputs(card, torch.bfloat16, b=504, t=200, d=128)
+    want = block_dense_layer_fused_reference(L, msg, wd, folded, lm, dropout=0.1, eps=1e-5)
+    assert _within(block_dense_layer_fused(L, msg, wd, folded, lm, dropout=0.1, eps=1e-5),
+                   want, K1_BF16_TOL)
+    assert not _within(block_dense_layer_fused(L, msg, wd, folded, lm, dropout=0.1, eps=1e-5,
+                                               variant="no_head0"), want, K1_BF16_TOL)
+    assert launch_counts()["block_dense_layer_fused"] == 3
 
 
 @pytest.mark.parametrize("heads", [1, 4, 16])
@@ -474,6 +559,62 @@ def test_block_gate_signature_x_and_qk_kernels(card, xdt, compute_bf16):
     torch.testing.assert_close(rsum, want_s, rtol=1e-6, atol=0.0)
     counts = launch_counts()
     assert counts["block_gate_signature_x"] == 1 and counts["block_gate_signature"] == 1
+
+
+def _signature_x_block_gemm(x, pad, A):
+    """K6b on its block_gemm body at bf16 compute, whatever the shape."""
+    return gated_block_attn._signature_launch(
+        block_gate_signature_x, "block_gate_signature_x", x, pad, A,
+        extra=(int(x.dtype == torch.bfloat16), 1, 0, 0, 0.01))
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, d", [(48, 128), (240, 128), (48, 64), (240, 64), (48, 32),
+                                  (240, 32)])
+def test_block_gate_signature_x_tensor_core_body(card, xdt, b, d):
+    """K6b at bf16 compute and B <= 256 runs the float64 tensor-core body
+    (`sig_body`; B = 48 padded to 64, the halo layout's B = 240 to 256):
+    counts equal to the plain version's, sums within 1e-6 relative, and
+    both bit for bit those of the block_gemm body."""
+    x, pad, A, _, _, _ = _gated_inputs(card, xdt, b=b, d=d, seed=b + d)
+    x = 2.0 * x
+    assert sig_body(b, True) == "tensor_core"
+    got = block_gate_signature_x(x, pad, A, eps=0.01, compute_bf16=True)
+    want_s, want_c = block_gate_signature_x_reference(x, pad, A, eps=0.01, compute_bf16=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want_c) and float(want_c.sum()) > 0
+    assert float(got[1][pad == 0].sum()) == 0.0
+    torch.testing.assert_close(got[0], want_s, rtol=1e-6, atol=0.0)
+    gemm = _signature_x_block_gemm(x, pad, A)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, gemm))
+    assert launch_counts()["block_gate_signature_x"] == 2
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_block_gate_signature_x_fault_is_rejected(card, seed):
+    """K6b's tensor-core body with its sums rounded to float32 every four
+    products (the planted fault F32ACC, as K6c's) misses the plain
+    version's row sums at 1e-6 relative on the halo layout's 500
+    partitions of B = 240. The fault moves a row sum only where it flips a
+    bf16 rounding of Q, so a few partitions can pass it: every seed here
+    covers 120,000 rows."""
+    g = torch.Generator().manual_seed(seed)
+    nb, b, d = 500, 240, 128
+    x = torch.randn(nb, b, d, generator=g).to(card)
+    pad = torch.ones(nb, b, device=card)
+    pad[-1, b - b // 3:] = 0.0
+    A = (torch.randn(d, d, generator=g) * (0.3 / d ** 0.5)).to(card)
+    want_s, want_c = block_gate_signature_x_reference(x, pad, A, eps=0.01, compute_bf16=True)
+
+    def agrees(got):
+        torch.cuda.synchronize()
+        return torch.equal(got[1], want_c) and bool(
+            torch.allclose(got[0], want_s, rtol=1e-6, atol=0.0))
+
+    assert agrees(block_gate_signature_x(x, pad, A, eps=0.01, compute_bf16=True))
+    assert not agrees(block_gate_signature_x(x, pad, A, eps=0.01, compute_bf16=True,
+                                             variant="f32_acc"))
 
 
 def test_train_step_takes_the_kernels_at_d64(card):
