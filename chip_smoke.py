@@ -102,6 +102,7 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (  # noqa: E402
     block_dense_layer_fused,
     block_dense_layer_fused_reference,
     k1_body,
+    k2_body,
 )
 from ruvector_tpu_torch.ops.kernels.flash_neighbor import (  # noqa: E402
     flash_neighbor_attention,
@@ -148,6 +149,7 @@ from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (  # noqa: E402
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import (  # noqa: E402
     fused_neighbor_mix,
     fused_neighbor_mix_reference,
+    k3_body,
 )
 from ruvector_tpu_torch.ops.kernels.spmm import (  # noqa: E402
     spmm_gather,
@@ -235,6 +237,28 @@ SOURCES = {
                                  "ruvector_tpu/ops/pallas/flash_neighbor.py:69"),
     "spmm_gather": ("ruvector_tpu_torch/csrc/spmm_gather.cu",
                     "ruvector_tpu/ops/pallas/spmm.py:34"),
+}
+# K1's ptxas report (registers, spill stores, spill loads) by instance, as
+# the tensor-core body (variants 1 and 2: test-only faults) and the
+# float32 body built before K2 shared their table passes
+K1_PTXAS = {
+    "tc_fused_kernelILi32ELi0EE": (172, 0, 0),
+    "tc_fused_kernelILi64ELi0EE": (186, 0, 0),
+    "tc_fused_kernelILi128ELi0EE": (255, 8, 8),
+    "tc_fused_kernelILi128ELi1EE": (255, 32, 56),
+    "tc_fused_kernelILi128ELi2EE": (255, 8, 8),
+    "fused_layer_kernelIfLi128ELi8EE": (254, 0, 0),
+    "fused_layer_kernelIfLi128ELi4EE": (140, 0, 0),
+    "fused_layer_kernelIfLi128ELi2EE": (86, 0, 0),
+    "fused_layer_kernelIfLi128ELi1EE": (64, 0, 0),
+    "fused_layer_kernelIfLi64ELi8EE": (204, 0, 0),
+    "fused_layer_kernelIfLi64ELi4EE": (128, 20, 20),
+    "fused_layer_kernelIfLi64ELi2EE": (72, 0, 0),
+    "fused_layer_kernelIfLi64ELi1EE": (58, 0, 0),
+    "fused_layer_kernelIfLi32ELi8EE": (204, 0, 0),
+    "fused_layer_kernelIfLi32ELi4EE": (142, 0, 0),
+    "fused_layer_kernelIfLi32ELi2EE": (64, 0, 0),
+    "fused_layer_kernelIfLi32ELi1EE": (58, 0, 0),
 }
 # kernels that no path of the JAX package reaches (shown, with launches 0)
 OFF_PATH = {"block_gate_signature": "no caller in the JAX package (gated.py:291 is unused)"}
@@ -404,7 +428,8 @@ def ptxas_entries(text: str) -> list[dict]:
         if m:
             # the layer's kernels by name and template arguments (mangled)
             short = re.search(r"((?:tc_)?(?:layer|mha_fwd|mha_bwd|signature|gate|attention|"
-                              r"fused_layer|fused)_kernelI\w*?)EvNS", m.group(1))
+                              r"fused_layer|fused|stream_mix|neighbor_mix)_kernelI\w*?)"
+                              r"Ev(?:NS|PK)", m.group(1))
             name = short.group(1) if short else m.group(1)
             if not entries or entries[-1]["entry"] != name:
                 entries.append({"entry": name})
@@ -432,10 +457,18 @@ def phase_build() -> None:
     for line in spills[:8]:
         print("  ptxas:", line, flush=True)
     # the instances of the tensor-core bodies and of the bodies beside them
-    for source in ("block_dense_attn", "gated_block_layer", "gated_block_mha",
+    for source in ("block_dense_attn", "neighbor_mix", "gated_block_layer", "gated_block_mha",
                    "gated_block_attn", "mincut_gate_block"):
         for e in ptxas_entries(_lib.log_path(source).read_text()):
             say("build_ptxas", source=source, **e)
+    # K1's instances must build as before K2's tensor-core body came to
+    # share its table passes (wd_pass, head_pass)
+    got = {e["entry"]: (e.get("registers"), e.get("spill_stores", 0), e.get("spill_loads", 0))
+           for e in ptxas_entries(_lib.log_path("block_dense_attn").read_text())}
+    changed = {name: got.get(name) for name, want in K1_PTXAS.items() if got.get(name) != want}
+    say("build_ptxas_k1", instances=len(K1_PTXAS), unchanged=not changed)
+    if changed:
+        raise AssertionError(f"K1's ptxas report changed: {changed}")
 
 
 def _sparse_wd(nb, b, t, per_row, gen):
@@ -458,8 +491,9 @@ def phase_parity(params, cfg) -> float:
     attention is exact (one edge per row, wd = 1.0, a table of bf16
     values: p = 1), and two controls planted in that body must be
     rejected: single-pass TF32 (by the float32 limits) and head 0 left out
-    of attn_out (by the bf16 limits). Returns that float32-grade max abs
-    error."""
+    of attn_out (by the bf16 limits). Two more controls: K2's tensor-core
+    body without the online softmax's rescale and K3's streaming body
+    without slot M-1. Returns that float32-grade max abs error."""
     gen = torch.Generator().manual_seed(0)
     nb, b, t, d, h = 6, 504, 1024, cfg.hidden_dim, cfg.heads
     wd = _sparse_wd(nb, b, t, 16, gen).to(DEV)
@@ -472,7 +506,7 @@ def phase_parity(params, cfg) -> float:
         msg = torch.randn(nb, b, d, generator=gen).to(DEV)
         for lm_case in (None, lm):
             tag = "" if lm_case is None else "+lm"
-            agree(f"K2 block_dense_attention T={t}{tag}",
+            agree(f"K2 block_dense_attention T={t}{tag} body={k2_body(cdt)}",
                   block_dense_attention(L, u, sb, wd, lm_case, scale=0.25),
                   block_dense_attention_reference(L, u, sb, wd, lm_case, scale=0.25), cdt)
             agree(f"K1 block_dense_layer_fused T={t}{tag} body={k1_body(cdt)}",
@@ -480,6 +514,12 @@ def phase_parity(params, cfg) -> float:
                                           eps=cfg.eps),
                   block_dense_layer_fused_reference(L, msg, wd, folded, lm_case,
                                                     dropout=0.0, eps=cfg.eps), cdt)
+    # control: the online softmax without its correction exp(m_old -
+    # m_new), on rows of 16 edges over T=1024 (the last bf16 inputs, with lm)
+    expect_rejected("K2 without the online softmax's rescale", lambda: agree(
+        "control: K2 body=tensor_core without the rescale",
+        block_dense_attention(L, u, sb, wd, lm, scale=0.25, variant="no_rescale"),
+        block_dense_attention_reference(L, u, sb, wd, lm, scale=0.25), torch.bfloat16))
     # control: head 0 left out of attn_out (the last bf16 inputs, with lm)
     expect_rejected("K1 without head 0's tv_0 Wvo_0", lambda: agree(
         "control: K1 body=tensor_core without head 0",
@@ -507,12 +547,24 @@ def phase_parity(params, cfg) -> float:
     mask = (torch.rand(n, m, generator=gen) > 0.2).float().to(DEV)
     mask[7] = 0.0
     wnorm = normalized_weights(torch.rand(n, m, generator=gen).to(DEV), mask)
-    agree(f"K3 fused_neighbor_mix N={n}",
-          fused_neighbor_mix(*k3, mask, wnorm, heads=h, scale=0.25),
-          fused_neighbor_mix_reference(*k3, mask, wnorm, heads=h, scale=0.25),
-          torch.float32)
+    want3 = fused_neighbor_mix_reference(*k3, mask, wnorm, heads=h, scale=0.25)
+    agree(f"K3 fused_neighbor_mix N={n} body={k3_body(h, m, d)}",
+          fused_neighbor_mix(*k3, mask, wnorm, heads=h, scale=0.25), want3, torch.float32)
+    expect_rejected("K3 without slot M-1", lambda: agree(
+        "control: K3 body=streaming without slot M-1",
+        fused_neighbor_mix(*k3, mask, wnorm, heads=h, scale=0.25, variant="drop_last_slot"),
+        want3, torch.float32))
     torch.cuda.synchronize()
     return f32_grade
+
+
+def tile_share(wd: torch.Tensor, rows: int = 16, cols: int = 64) -> float:
+    """Share of the [rows, cols] tiles of wd [nB, B, T] that hold an edge:
+    K2's tensor-core body computes those (a warp's 16-row strip against a
+    64-row chunk of the table) and skips the others."""
+    nb, b, t = wd.shape
+    e = F.pad((wd > 0).float(), (0, -t % cols, 0, -b % rows))
+    return float(e.reshape(nb, -1, rows, e.shape[2] // cols, cols).amax(dim=(2, 4)).mean())
 
 
 def bench_features(n: int, d: int) -> np.ndarray:
@@ -1788,6 +1840,10 @@ def main() -> int:
         params, cfg, fpad, bdg, use_pallas=True))
     launches["block_dense_attention"] = counts["block_dense_attention"]
     agree("K2 route vs scan route", k2_out, scan, torch.bfloat16)
+    k2_route_ms = time_ms(lambda: ruvector_layer_apply_block_dense(
+        params, cfg, fpad, bdg, use_pallas=True), iters=10)
+    say("k2_route", launches=launches["block_dense_attention"], body=k2_body(cfg.cdt),
+        k2_route_ms=k2_route_ms, edges_per_s=edges / (k2_route_ms * 1e-3))
 
     cfg32 = RuvectorLayerConfig(d, d, heads=heads)
     cfg_k3 = RuvectorLayerConfig(d, d, heads=heads, use_pallas=True)
@@ -1872,7 +1928,8 @@ def main() -> int:
         out_bytes = (heads + 1) * rows * d * 4
         report.append(("block_dense_attention", k2, k2_ref, _agree_as(cfg.cdt),
                        bound(nbytes(L_full, u_hm, sb_hm, wd) + out_bytes,
-                             {cfg.cdt: 2 * (2 * heads + 1) * d * n_edges}), {}))
+                             {cfg.cdt: 2 * (2 * heads + 1) * d * n_edges}),
+                       {"body": k2_body(cfg.cdt), "strip_chunks_with_edges": tile_share(wd)}))
 
         # K3: the use_pallas slot route's inputs (f32 config)
         msg_s = linear_apply(params["w_msg"], feats)
@@ -1889,7 +1946,7 @@ def main() -> int:
         k3_ops = {torch.float32: 2 * (2 * heads + 1) * d * int((mask_s > 0).sum())}
         report.append(("fused_neighbor_mix", k3, k3_ref, _agree_as(torch.float32),
                        bound(nbytes(*k3_args) + (heads + 1) * N_NODES * d * 4, k3_ops),
-                       {}))
+                       {"body": k3_body(heads, nbr_s.shape[1], d)}))
         report += config5_report(c5, gparams, gcfg)
         report += train_report(c5, c5_halo, gparams, gcfg)
         report += serve_report(rr, sp)

@@ -24,30 +24,50 @@
 // 224 MB, the largest). At float32 grade on the tensor cores (3xTF32, 165
 // TFLOP/s) the epilogue's operations bound it.
 //
-// Two bodies of K1, one for each compute type (an explicit dispatch, not a
-// fallback):
+// Two bodies of K1 and of K2, one for each compute type (an explicit
+// dispatch, not a fallback; ops/kernels/block_dense_attn.k1_body, k2_body):
 //
-// * tc_fused_kernel (bf16 compute): every product on the tensor cores with
-//   mma.sync (gated_tc.cuh). A CTA of 8 warps owns 128 rows of one block,
-//   a warp a 16-row strip. The dense tile's products (u_h L^T, p L, wd L)
-//   take bf16 operands with float32 sums on m16n8k16: L streams through
-//   shared memory in 64-row chunks (cp.async, two buffers) shared by the
-//   warps, the scores stay in registers and become the A operand of p L
-//   (FlashAttention-2's online softmax, one pass per head), and wd is read
-//   once, coalesced, in a first pass that also keeps each chunk's edge
-//   bits (one word a lane) in a small global scratch for the head passes.
-//   The epilogue's float32 products (M A_h, tv_h Wvo_h, Wagg, w3, u2, uhk)
-//   run as 3xTF32 on m16n8k8 with float32 sums, the float32 grade the TPU
-//   kernel's f32 products have: the weights go through shared memory in
-//   32-row slabs shared by the warps, the left operands are the warp's
-//   float32 strips in shared memory (M; attn_out, then X1 and AGG; tv_h,
-//   then r M). Biases, sigmoid, tanh, dropout and LayerNorm stay float32
-//   on the CUDA cores.
-// * fused_layer_kernel (float32 compute): the attention core
-//   below and tile_gemm on the CUDA cores. Single-pass TF32 would break
-//   the float32 tolerance of 1e-4.
+// * tc_fused_kernel (K1, bf16 compute): every product on the tensor cores
+//   with mma.sync (gated_tc.cuh). A CTA of 8 warps owns 128 rows of one
+//   block, a warp a 16-row strip. The dense tile's products (u_h L^T, p L,
+//   wd L) take bf16 operands with float32 sums on m16n8k16: L streams
+//   through shared memory in 64-row chunks (cp.async, two buffers) shared
+//   by the warps, the scores stay in registers and become the A operand of
+//   p L (FlashAttention-2's online softmax, one pass per head: head_pass),
+//   and wd is read once, coalesced, in a first pass (wd_pass) that also
+//   keeps each chunk's edge bits (one word a lane) in a small global
+//   scratch for the head passes. The epilogue's float32 products (M A_h,
+//   tv_h Wvo_h, Wagg, w3, u2, uhk) run as 3xTF32 on m16n8k8 with float32
+//   sums, the float32 grade the TPU kernel's f32 products have: the
+//   weights go through shared memory in 32-row slabs shared by the warps,
+//   the left operands are the warp's float32 strips in shared memory (M;
+//   attn_out, then X1 and AGG; tv_h, then r M). Biases, sigmoid, tanh,
+//   dropout and LayerNorm stay float32 on the CUDA cores.
+// * tc_attention_kernel (K2, bf16 compute): K1's tile without its
+//   epilogue, in K1's pass order: wd_pass writes out[H] = bf16(wd) L from
+//   its accumulators, then one head_pass a head, on u_h loaded from global
+//   memory straight into A fragments, writes out[h]. What bounds it: bytes
+//   (wd 224 MB, out 280 MB float32, u 112 MB at the main path's shape:
+//   0.19 ms), against 0.13 ms of bf16 tensor-core operations over the
+//   whole dense tile. Its design, against the other one considered (a
+//   CTA's warps split over the heads of the same strips): with 8 warps and
+//   H = 4 a CTA would then own 32 rows, so the table would cross shared
+//   memory once per 32 rows, about as often as here (H + 1 passes per 128
+//   rows), and every head's warp would need the strip's edge bits a chunk
+//   ahead; K1's passes serve as they are. Edge bits in K1's global scratch,
+//   not in shared memory, so that any T runs (each lane reads back only the
+//   words it wrote, L2-resident: wd's bytes / 32). Unlike K1 (whose code
+//   generation stays as measured), a warp skips the products of a chunk
+//   where its strip has no edge: on a graph-grown layout most strips reach
+//   a few of the table's chunks. 32 KB of shared memory (two table
+//   chunks) but 248 registers at D = 128 (ptxas), so one CTA of 8 warps an
+//   SM. Outputs are stored from the m16n8 accumulators: a quad writes 8
+//   contiguous floats of a row per tile, whole 32-byte sectors.
+// * fused_layer_kernel (K1) and attention_kernel (K2), float32 compute:
+//   the attention core below and, for K1, tile_gemm on the CUDA cores.
+//   Single-pass TF32 would break the float32 tolerance of 1e-4.
 //
-// K2 and the float32 K1 (what bounds them, and the CUDA-core design).
+// The float32 bodies (what bounds them, and the CUDA-core design).
 // The TPU kernel held the whole table L in VMEM. Here L does not fit:
 // T = bsz + halo rounded to 128 may reach 1024 rows, 256 KB in bf16 at
 // D=128, more than the 227 KB a block may use. Per row the dense tile
@@ -56,7 +76,7 @@
 // rate, then by shared-memory loads; HBM traffic (L, wd, msg read once,
 // output written once) is small beside it.
 //
-// Design of that core (it serves K2 and the float32 K1):
+// Design of that core (it serves both float32 kernels):
 // * A block owns a 16-row tile of one block-dense block (grid = row tiles x
 //   blocks: thousands of blocks in flight on 132 SMs) and masks the ragged
 //   end of B itself — the TPU wrapper asserted B % tile == 0 instead.
@@ -70,12 +90,12 @@
 //   pairs, for the H heads plus the wd "head" in one loop over the chunk.
 // * Masking keeps -1e30 as the fill and selects p = 0 on masked columns,
 //   so a row without edges ends with sum 0 and never NaN.
-// * bf16 compute rounds where the JAX reference rounds: L and u (K2 input,
-//   K1 after M A_h + c_h) are bf16 values, p is rounded to bf16 before the
-//   p.L product and wd is rounded to bf16 before wd.L; sums stay f32, and so
-//   does all GRU/LayerNorm math. One difference is inherent to streaming
-//   (both cores and K1's tensor-core body): p is rounded relative to the
-//   running max rather than the final max.
+//
+// bf16 compute rounds where the JAX reference rounds: L and u (K2 input,
+// K1 after M A_h + c_h) are bf16 values, p is rounded to bf16 before the
+// p.L product and wd is rounded to bf16 before wd.L; sums stay f32, and so
+// does all GRU/LayerNorm math. One difference is inherent to streaming: p
+// is rounded relative to the running max rather than the final max.
 
 #include "gated_tc.cuh"
 
@@ -86,18 +106,14 @@ using namespace rvt;  // kThreads (256), kWarps, kNeg, warp_sum, warp_max, the t
 constexpr int kRows = 16;   // row tile
 constexpr int kChunk = 32;  // local-table columns per streamed chunk (= warp width)
 
+// The CUDA-core bodies run at float32 compute only (T = float): bf16
+// compute takes the tensor-core bodies.
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
-// round an f32 value to the compute type T (round to nearest even) and back
+// round an f32 value to the compute type T and back
 template <typename T> __device__ __forceinline__ float round_to(float x);
 template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -802,6 +818,116 @@ __device__ __forceinline__ bool quad_any(bool v) {
   return x != 0;
 }
 
+// The wd pass of a warp's strip (rows g and g + 8 of the thread: w0, w1,
+// null past B): acc = bf16(wd) L over the whole table, each chunk's edge
+// bits stored at bits[ch * 32] (one word a lane: bit 4n + e of the
+// thread's score positions, load_at_scores), has0 and has1 whether the
+// thread's columns of rows g and g + 8 hold an edge. wd is read once,
+// streamed, a chunk ahead. SKIP: a warp leaves out the products of a chunk
+// where its strip has no edge (they add 0). Every thread calls it
+// (table_loop).
+template <int D, bool SKIP = false>
+__device__ __forceinline__ void wd_pass(float (&acc)[D / 8][4], bool& has0, bool& has1,
+                                        const float* w0, const float* w1, bf16* tbuf,
+                                        const bf16* Lk, int T, uint32_t* bits) {
+  const int nch = (T + kTab - 1) / kTab;
+  zero<D>(acc);
+  has0 = false;
+  has1 = false;
+  float w[8][4];
+  load_at_scores<true>(w, w0, w1, 0, T);
+  table_loop<D>(tbuf, Lk, T, [&](int ch, const bf16* Lc) {
+    uint32_t f[4][4], word = 0u;
+    chunk_frags(f, w);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) word |= (w[n][e] > 0.f ? 1u : 0u) << (4 * n + e);
+    bits[ch * 32] = word;
+    has0 |= (word & 0x33333333u) != 0u;  // e = 0, 1: row g
+    has1 |= (word & 0xccccccccu) != 0u;  // e = 2, 3: row g + 8
+    if (ch + 1 < nch) load_at_scores<true>(w, w0, w1, (ch + 1) * kTab, T);
+    if (SKIP && !__any_sync(0xffffffffu, word != 0u)) return;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_row_k16<D>(acc, f[kk], Lc, 16 * kk);
+  });
+}
+
+// One head's pass over the table for a warp's strip (FlashAttention-2's
+// online softmax): the scores s = prep(u L^T) (+ lm where with_lm; lm0,
+// lm1 the thread's rows of lm, null past B), masked to -1e30 by the edge
+// bits of wd_pass, and acc = sum_t p_t L_t / max(sum_t p_t, 1e-10), with
+// p = exp(s - running max) rounded to bf16 as the A operand of p L; a row
+// without an edge gives 0. RESCALE = false leaves the correction exp(m_old
+// - m_new) out of acc and the sums (a test-only fault). SKIP: a warp
+// leaves out a chunk where its strip has no edge (its scores are all
+// masked: the running max, the sums and acc stay as they are). Every
+// thread calls it (table_loop).
+template <int D, bool RESCALE, bool SKIP, typename Prep>
+__device__ __forceinline__ void head_pass(float (&acc)[D / 8][4], const uint32_t (&uf)[D / 16][4],
+                                          const float* lm0, const float* lm1, bool with_lm,
+                                          bf16* tbuf, const bf16* Lk, int T,
+                                          const uint32_t* bits, Prep prep) {
+  constexpr int NT = D / 8;
+  zero<D>(acc);
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+  table_loop<D>(tbuf, Lk, T, [&](int ch, const bf16* Lc) {
+    const uint32_t word = bits[ch * 32];
+    if (SKIP && !__any_sync(0xffffffffu, word != 0u)) return;
+    float s[8][4];
+    scores64<D>(s, uf, Lc);
+    prep(s);
+    if (with_lm) {
+      float lv[8][4];
+      load_at_scores<false>(lv, lm0, lm1, ch * kTab, T);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += lv[n][e];
+    }
+    float x0 = kNeg, x1 = kNeg;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!((word >> (4 * n + e)) & 1u)) s[n][e] = kNeg;
+        if (e < 2) x0 = fmaxf(x0, s[n][e]);
+        else x1 = fmaxf(x1, s[n][e]);
+      }
+    const float mn0 = fmaxf(m0, quad_max(x0)), mn1 = fmaxf(m1, quad_max(x1));
+    const float cr0 = RESCALE ? __expf(m0 - mn0) : 1.f;
+    const float cr1 = RESCALE ? __expf(m1 - mn1) : 1.f;
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool edge = (word >> (4 * n + e)) & 1u;
+        const float p = edge ? __expf(s[n][e] - (e < 2 ? mn0 : mn1)) : 0.f;
+        s[n][e] = p;
+        if (e < 2) ps0 += p;
+        else ps1 += p;
+      }
+    l0 = l0 * cr0 + ps0;  // per-lane partial sums: the quad's corrections agree
+    l1 = l1 * cr1 + ps1;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      acc[t][0] *= cr0; acc[t][1] *= cr0; acc[t][2] *= cr1; acc[t][3] *= cr1;
+    }
+    uint32_t f[4][4];
+    chunk_frags(f, s);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_row_k16<D>(acc, f[kk], Lc, 16 * kk);
+  });
+  const float d0 = fmaxf(quad_sum(l0), 1e-10f), d1 = fmaxf(quad_sum(l1), 1e-10f);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    acc[t][0] /= d0; acc[t][1] /= d0; acc[t][2] /= d1; acc[t][3] /= d1;
+  }
+}
+
 // bits: the edge-bit scratch [nB, row CTAs, kWarps, T chunks, 32 lanes]
 // (one word a lane and chunk: bit 4n + e of the thread's score positions,
 // load_at_scores), written by the wd pass and read by the head passes.
@@ -832,28 +958,9 @@ tc_fused_kernel(const FusedArgs a, uint32_t* __restrict__ bits_all, int heads) {
 
   // pass over the table with wd: wm = bf16(wd) L, the edge bits, has_any
   float acc[NT][4];
-  zero<D>(acc);
-  bool has0 = false, has1 = false;
-  {
-    const float* w0 = ok0 ? a.wd + (row0 + g) * T : nullptr;
-    const float* w1 = ok1 ? a.wd + (row0 + g + 8) * T : nullptr;
-    float w[8][4];
-    load_at_scores<true>(w, w0, w1, 0, T);
-    table_loop<D>(tbuf, Lk, T, [&](int ch, const bf16* Lc) {
-      uint32_t f[4][4], word = 0u;
-      chunk_frags(f, w);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) word |= (w[n][e] > 0.f ? 1u : 0u) << (4 * n + e);
-      bits[ch * 32] = word;
-      has0 |= (word & 0x33333333u) != 0u;  // e = 0, 1: row g
-      has1 |= (word & 0xccccccccu) != 0u;  // e = 2, 3: row g + 8
-      if (ch + 1 < nch) load_at_scores<true>(w, w0, w1, (ch + 1) * kTab, T);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mma_row_k16<D>(acc, f[kk], Lc, 16 * kk);
-    });
-  }
+  bool has0, has1;
+  wd_pass<D>(acc, has0, has1, ok0 ? a.wd + (row0 + g) * T : nullptr,
+             ok1 ? a.wd + (row0 + g + 8) * T : nullptr, tbuf, Lk, T, bits);
   has0 = quad_any(has0);
   has1 = quad_any(has1);
   // attn_out starts as wm + bout + has_any bvo
@@ -879,61 +986,9 @@ tc_fused_kernel(const FusedArgs a, uint32_t* __restrict__ bits_all, int heads) {
     add_bias<D>(acc, a.c + h * D);
     uint32_t uf[D / 16][4];
     to_frags<D>(uf, acc);
-    // one pass over the table: online softmax, acc = sum p L
-    zero<D>(acc);
-    float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-    table_loop<D>(tbuf, Lk, T, [&](int ch, const bf16* Lc) {
-      const uint32_t word = bits[ch * 32];
-      float s[8][4];
-      scores64<D>(s, uf, Lc);
-      if (a.lm != nullptr) {
-        float lv[8][4];
-        load_at_scores<false>(lv, lm0, lm1, ch * kTab, T);
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] += lv[n][e];
-      }
-      float x0 = kNeg, x1 = kNeg;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (!((word >> (4 * n + e)) & 1u)) s[n][e] = kNeg;
-          if (e < 2) x0 = fmaxf(x0, s[n][e]);
-          else x1 = fmaxf(x1, s[n][e]);
-        }
-      const float mn0 = fmaxf(m0, quad_max(x0)), mn1 = fmaxf(m1, quad_max(x1));
-      const float cr0 = __expf(m0 - mn0), cr1 = __expf(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool edge = (word >> (4 * n + e)) & 1u;
-          const float p = edge ? __expf(s[n][e] - (e < 2 ? mn0 : mn1)) : 0.f;
-          s[n][e] = p;
-          if (e < 2) ps0 += p;
-          else ps1 += p;
-        }
-      l0 = l0 * cr0 + ps0;  // per-lane partial sums: the quad's corrections agree
-      l1 = l1 * cr1 + ps1;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        acc[t][0] *= cr0; acc[t][1] *= cr0; acc[t][2] *= cr1; acc[t][3] *= cr1;
-      }
-      uint32_t f[4][4];
-      chunk_frags(f, s);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mma_row_k16<D>(acc, f[kk], Lc, 16 * kk);
-    });
-    const float d0 = fmaxf(quad_sum(l0), 1e-10f), d1 = fmaxf(quad_sum(l1), 1e-10f);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      acc[t][0] /= d0; acc[t][1] /= d0; acc[t][2] /= d1; acc[t][3] /= d1;
-    }
+    // one pass over the table: online softmax, acc = sum p L / sum p
+    head_pass<D, true, false>(acc, uf, lm0, lm1, a.lm != nullptr, tbuf, Lk, T, bits,
+                              [](float (&)[8][4]) {});
     // attn_out += tv_h Wvo_h
     if (V == kNoHead0 && h == 0) continue;
     store_acc<D>(TS, acc);
@@ -1041,24 +1096,147 @@ int run_tc_dispatch(const FusedArgs& a, uint32_t* bits, int d, int heads, int va
   return run_tc<32, kExact>(a, bits, heads, s);
 }
 
+
+// ---------------------------------------------------------------------------
+// K2 on the tensor cores (bf16 compute): tc_attention_kernel
+// ---------------------------------------------------------------------------
+
+// Test-only fault, built at D = 128 only: the online softmax's correction
+// exp(m_old - m_new) left out of acc and the sums.
+enum AttnVariant { kAttnExact = 0, kNoRescale = 1 };
+
+// The thread's A fragments (D/16 of m16k16) of rows g and g + 8 of a bf16
+// strip [kStrip, D] in global memory (row stride D), straight from 32-bit
+// loads; rows past B (ok0, ok1 false) are 0.
+template <int D>
+__device__ __forceinline__ void load_frags(uint32_t (&f)[D / 16][4], const bf16* __restrict__ S,
+                                           bool ok0, bool ok1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(S + g * D + 2 * c);
+  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(S + (g + 8) * D + 2 * c);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    f[kk][0] = ok0 ? __ldg(r0 + 8 * kk) : 0u;
+    f[kk][1] = ok1 ? __ldg(r1 + 8 * kk) : 0u;
+    f[kk][2] = ok0 ? __ldg(r0 + 8 * kk + 4) : 0u;
+    f[kk][3] = ok1 ? __ldg(r1 + 8 * kk + 4) : 0u;
+  }
+}
+
+// The strip's accumulators (the m16n8 layout) to rows g and g + 8 of a
+// float32 [kStrip, D] strip in global memory (rows past B skipped): a
+// quad writes the 8 contiguous floats of a row per tile, whole sectors.
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ S, const float (&acc)[D / 8][4],
+                                           bool ok0, bool ok1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = 8 * n + 2 * c;
+    if (ok0) __stcs(reinterpret_cast<float2*>(S + g * D + col), make_float2(acc[n][0], acc[n][1]));
+    if (ok1)
+      __stcs(reinterpret_cast<float2*>(S + (g + 8) * D + col), make_float2(acc[n][2], acc[n][3]));
+  }
+}
+
+// bits: the edge-bit scratch, as tc_fused_kernel's. K1's pass order: the
+// wd pass writes out[H] and the edge bits, then one pass a head over the
+// table writes out[h].
+template <int D, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+tc_attention_kernel(const AttnArgs a, uint32_t* __restrict__ bits_all, int heads) {
+  const int k = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int B = a.b, T = a.t;
+  const int r0 = blockIdx.x * kCtaRows + warp * kStrip;  // the strip's first row in block k
+  const size_t row0 = (size_t)k * B + r0;
+  const size_t plane = (size_t)a.nb * B;  // rows of one head's plane of u, sb and out
+  const bool ok0 = r0 + g < B, ok1 = r0 + g + 8 < B;
+  extern __shared__ __align__(16) float smem[];
+  bf16* tbuf = reinterpret_cast<bf16*>(smem);
+  const bf16* Lk = static_cast<const bf16*>(a.L) + (size_t)k * T * D;
+  const int nch = (T + kTab - 1) / kTab;
+  uint32_t* bits = bits_all + (((size_t)k * gridDim.x + blockIdx.x) * kWarps + warp) * nch * 32 +
+                   lane;
+
+  float acc[D / 8][4];
+  bool has0, has1;  // unused here
+  wd_pass<D, true>(acc, has0, has1, ok0 ? a.wd + (row0 + g) * T : nullptr,
+                   ok1 ? a.wd + (row0 + g + 8) * T : nullptr, tbuf, Lk, T, bits);
+  store_rows<D>(a.out + ((size_t)heads * plane + row0) * D, acc, ok0, ok1);
+
+  const float* lm0 = a.lm != nullptr && ok0 ? a.lm + (row0 + g) * T : nullptr;
+  const float* lm1 = a.lm != nullptr && ok1 ? a.lm + (row0 + g + 8) * T : nullptr;
+  const float scale = a.scale;
+  for (int h = 0; h < heads; ++h) {
+    const size_t hrow = h * plane + row0;
+    uint32_t uf[D / 16][4];
+    load_frags<D>(uf, static_cast<const bf16*>(a.u) + hrow * D, ok0, ok1);
+    const float sb0 = ok0 ? __ldg(a.sb + hrow + g) : 0.f;
+    const float sb1 = ok1 ? __ldg(a.sb + hrow + g + 8) : 0.f;
+    const auto prep = [&](float (&s)[8][4]) {  // s * scale + sb_h(row)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[n][0] = s[n][0] * scale + sb0;
+        s[n][1] = s[n][1] * scale + sb0;
+        s[n][2] = s[n][2] * scale + sb1;
+        s[n][3] = s[n][3] * scale + sb1;
+      }
+    };
+    head_pass<D, V != kNoRescale, true>(acc, uf, lm0, lm1, a.lm != nullptr, tbuf, Lk, T, bits,
+                                        prep);
+    store_rows<D>(a.out + hrow * D, acc, ok0, ok1);
+  }
+}
+
+template <int D, int V>
+int run_tc_attention(const AttnArgs& a, uint32_t* bits, int heads, cudaStream_t s) {
+  auto kernel = tc_attention_kernel<D, V>;
+  const size_t smem = (size_t)2 * kTab * D * sizeof(bf16);  // the two table chunks
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.b + kCtaRows - 1) / kCtaRows, a.nb);
+  kernel<<<grid, kThreads, smem, s>>>(a, bits, heads);
+  return (int)cudaGetLastError();
+}
+
+int run_tc_attention_dispatch(const AttnArgs& a, uint32_t* bits, int d, int heads, int variant,
+                              cudaStream_t s) {
+  if (variant == kNoRescale) return run_tc_attention<128, kNoRescale>(a, bits, heads, s);
+  if (d == 128) return run_tc_attention<128, kAttnExact>(a, bits, heads, s);
+  if (d == 64) return run_tc_attention<64, kAttnExact>(a, bits, heads, s);
+  return run_tc_attention<32, kAttnExact>(a, bits, heads, s);
+}
+
 }  // namespace k1tc
 
 }  // namespace
 
+// bf16 compute runs tc_attention_kernel with `bits` its edge-bit scratch
+// (block_dense_edge_bits_words); variant 1 (D = 128 and h = 4 only) is its
+// test-only fault. float32 compute runs attention_kernel.
 extern "C" int block_dense_attention(const void* L, const void* u, const void* sb,
-                                     const void* wd, const void* lm, void* out,
-                                     int nb, int b, int t, int d, int h,
-                                     int bf16, float scale, void* stream) {
+                                     const void* wd, const void* lm, void* out, void* bits,
+                                     int nb, int b, int t, int d, int h, int bf16,
+                                     int variant, float scale, void* stream) {
   AttnArgs a{L, u, static_cast<const float*>(sb), static_cast<const float*>(wd),
              static_cast<const float*>(lm), static_cast<float*>(out), nb, b, t, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? attention_d<__nv_bfloat16>(a, d, h, s) : attention_d<float>(a, d, h, s);
+  if (bf16) {
+    if (!rvt::width_ok(d) || h < 1 || h > 8 || bits == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (variant != 0 && !(variant == 1 && d == 128 && h == 4)) return (int)cudaErrorInvalidValue;
+    return k1tc::run_tc_attention_dispatch(a, static_cast<uint32_t*>(bits), d, h, variant, s);
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return attention_d<float>(a, d, h, s);
 }
 
 // folded: the 15 folded parameter pointers in fold_layer_params order
 // (A, c, Wvo, bvo, bout, Wagg, bagg, w3, b3, u2, ub2, uhk, uhb, gamma, beta).
 // bf16 compute runs tc_fused_kernel with `bits` its edge-bit scratch
-// (block_dense_layer_fused_bits_words); variant 1 or 2 (D = 128 and h = 4
+// (block_dense_edge_bits_words); variant 1 or 2 (D = 128 and h = 4
 // only) are its test-only faults. float32 compute runs fused_layer_kernel.
 extern "C" int block_dense_layer_fused(const void* L, const void* msg, const void* wd,
                                        const void* lm, const void* const* folded,
@@ -1080,9 +1258,10 @@ extern "C" int block_dense_layer_fused(const void* L, const void* msg, const voi
   return fused_d<float>(a, d, h, s);
 }
 
-// Words of tc_fused_kernel's edge-bit scratch: one per lane, warp, row
-// CTA and table chunk of every block (-1 past the range of an int).
-extern "C" int block_dense_layer_fused_bits_words(int nb, int b, int t) {
+// Words of the edge-bit scratch of tc_fused_kernel and tc_attention_kernel:
+// one per lane, warp, row CTA and table chunk of every block (-1 past the
+// range of an int).
+extern "C" int block_dense_edge_bits_words(int nb, int b, int t) {
   const long long ctas = (b + k1tc::kCtaRows - 1) / k1tc::kCtaRows;
   const long long chunks = (t + k1tc::kTab - 1) / k1tc::kTab;
   const long long words = (long long)nb * ctas * rvt::kWarps * chunks * 32;

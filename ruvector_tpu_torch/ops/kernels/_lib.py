@@ -33,12 +33,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t of its launch as an int)
 SIGNATURES = {
     "neighbor_mix": {
-        "neighbor_mix_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
+        "neighbor_mix_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
     },
     "block_dense_attn": {
-        "block_dense_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "block_dense_attention": [_P] * 7 + [_I] * 7 + [_F, _P],
         "block_dense_layer_fused": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
-        "block_dense_layer_fused_bits_words": [_I] * 3,
+        "block_dense_edge_bits_words": [_I] * 3,
     },
     "gated_block_attn": {
         "block_gate_signature_ln_x": [_P] * 8 + [_I] * 8 + [_F, _P],

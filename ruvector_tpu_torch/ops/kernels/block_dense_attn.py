@@ -10,7 +10,9 @@ dropped too: the folded A and c arrive pre-scaled (fold_layer_params).
 bf16 compute (L in bfloat16) rounds where the JAX kernels round: u (K2
 input; K1 after M A_h + c_h), the softmax weights before the weights-by-L
 product, and wd before wd.L. Sums, GRU and LayerNorm math stay float32
-(in K1's tensor-core body, its float32 products run as 3xTF32).
+(in K1's tensor-core body, its float32 products run as 3xTF32). Both
+kernels have two bodies chosen by compute type (`k1_body`, `k2_body`):
+bf16 on the tensor cores, float32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -80,19 +82,51 @@ def block_dense_attention_reference(L, u, sb, wd, lm=None, *, scale: float) -> t
     return out
 
 
-def block_dense_attention(L, u, sb, wd, lm=None, *, scale: float) -> torch.Tensor:
+# K2's test-only variant of the tensor-core body (csrc/block_dense_attn.cu,
+# built at D = 128 for H = 4 only), a fault that the card tests and
+# chip_smoke.py's controls must reject: the online softmax's correction
+# exp(m_old - m_new) left out of the aggregate and the sums
+K2_VARIANTS = {"exact": 0, "no_rescale": 1}
+
+
+def k2_body(cdt: torch.dtype) -> str:
+    """Which body of K2 runs at compute type `cdt`: "tensor_core" at bf16
+    (every width, head count, B and T the kernel takes) or "cuda_core" at
+    float32, whose 1e-4 tolerance single-pass TF32 products would break."""
+    return "tensor_core" if cdt == torch.bfloat16 else "cuda_core"
+
+
+def _edge_bits(lib, nb: int, b: int, t: int, device, name: str) -> torch.Tensor:
+    """The tensor-core bodies' edge-bit scratch, written and read back in
+    one launch."""
+    words = lib.block_dense_edge_bits_words(nb, b, t)
+    _lib.require(words >= 0, f"{name}: edge-bit scratch too large for {nb} x {b} x {t}")
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def block_dense_attention(L, u, sb, wd, lm=None, *, scale: float,
+                          variant: str = "exact") -> torch.Tensor:
     """Fused SDDMM + masked softmax + (H+1)-way aggregate over local tables.
 
     L [nB, T, D] (compute dtype), u [H, nB, B, D] (same dtype, head-major),
     sb [H, nB, B] float32, wd [nB, B, T] float32 (0 = no edge), lm optional
     [nB, B, T] float32. Returns mixed [H+1, nB, B, D] float32: per-head
     attention values, then the weighted mean. CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
+    version; CUDA tensors launch the kernel, whose body follows the compute
+    type (`k2_body`). `variant` other than "exact" runs a fault planted in
+    the tensor-core body (K2_VARIANTS), for controls only.
     """
+    name = "block_dense_attention"
+    _lib.require(variant in K2_VARIANTS, f"{name}: unknown variant {variant!r}")
     if L.device.type == "cpu":
+        _lib.require(variant == "exact", f"{name}: variant {variant!r} runs on the card only")
         return block_dense_attention_reference(L, u, sb, wd, lm, scale=scale)
     heads, nb, b, d = u.shape
     t = _check_table(L, wd, lm, nb, b, d, heads)
+    tc = k2_body(L.dtype) == "tensor_core"
+    _lib.require(variant == "exact" or (tc and d == 128 and heads == 4),
+                 f"{name}: variant {variant!r} is built for the tensor-core body at D=128, "
+                 f"H=4 only")
     _lib.require(u.dtype == L.dtype and u.device == L.device and u.is_contiguous(),
                  "u must be contiguous, on L's device, in L's dtype")
     _lib.require(sb.dtype == torch.float32 and tuple(sb.shape) == (heads, nb, b)
@@ -101,12 +135,14 @@ def block_dense_attention(L, u, sb, wd, lm=None, *, scale: float) -> torch.Tenso
     if nb * b == 0:
         return out
     lib = _lib.load("block_dense_attn")
+    bits = _edge_bits(lib, nb, b, t, L.device, name) if tc else None
     rc = lib.block_dense_attention(
         L.data_ptr(), u.data_ptr(), sb.data_ptr(), wd.data_ptr(),
-        None if lm is None else lm.data_ptr(), out.data_ptr(), nb, b, t, d, heads,
-        int(L.dtype == torch.bfloat16), scale, _lib.stream_handle(L))
+        None if lm is None else lm.data_ptr(), out.data_ptr(),
+        None if bits is None else bits.data_ptr(), nb, b, t, d, heads, int(tc),
+        K2_VARIANTS[variant], scale, _lib.stream_handle(L))
     block_dense_attention.launches += 1
-    _lib.check(lib, rc, "block_dense_attention")
+    _lib.check(lib, rc, name)
     return out
 
 
@@ -213,11 +249,7 @@ def block_dense_layer_fused(L, msgf, wd, folded, lm=None, *, dropout: float,
     ptrs = (ctypes.c_void_p * len(FOLDED_KEYS))(
         *(folded[key].data_ptr() for key in FOLDED_KEYS))
     lib = _lib.load("block_dense_attn")
-    bits = None
-    if tc:  # the tensor-core body's edge bits, written and read back in one launch
-        words = lib.block_dense_layer_fused_bits_words(nb, b, t)
-        _lib.require(words >= 0, f"{name}: edge-bit scratch too large for {nb} x {b} x {t}")
-        bits = torch.empty(words, dtype=torch.int32, device=L.device)
+    bits = _edge_bits(lib, nb, b, t, L.device, name) if tc else None
     rc = lib.block_dense_layer_fused(
         L.data_ptr(), msgf.data_ptr(), wd.data_ptr(),
         None if lm is None else lm.data_ptr(), ctypes.addressof(ptrs), out.data_ptr(),

@@ -39,6 +39,7 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
     block_dense_layer_fused,
     k1_body,
+    k2_body,
 )
 
 F32_TOL = 2e-5
@@ -275,3 +276,25 @@ def test_k1_variants_run_on_the_card_only(variant):
                                 torch.from_numpy(wd), tfolded, dropout=0.1, eps=1e-5,
                                 variant=variant)
     assert launch_counts()["block_dense_layer_fused"] == 0
+
+
+def test_k2_body_follows_compute_type():
+    """bf16 compute runs K2's tensor-core body, float32 compute its
+    CUDA-core body."""
+    assert k2_body(torch.bfloat16) == "tensor_core"
+    assert k2_body(torch.float32) == "cuda_core"
+
+
+@pytest.mark.parametrize("variant", ["no_rescale", "unknown"])
+def test_k2_variants_run_on_the_card_only(variant):
+    """K2's planted fault is a card-only instance: on CPU tensors the
+    wrapper raises instead of taking the plain version, and counts no
+    launch."""
+    rng, (nb, b, t, d, h), L, wd, _, _, _ = _kernel_inputs(4, "bfloat16", False)
+    u = torch.from_numpy(rng.normal(size=(h, nb, b, d)).astype(np.float32)).to(torch.bfloat16)
+    sb = torch.from_numpy(rng.normal(size=(h, nb, b)).astype(np.float32))
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        block_dense_attention(torch.from_numpy(L).to(torch.bfloat16), u, sb,
+                              torch.from_numpy(wd), scale=0.25, variant=variant)
+    assert launch_counts()["block_dense_attention"] == 0

@@ -13,7 +13,8 @@ are held to the same bounds relative to each tensor's largest magnitude;
 signature counts (K6a/K6b/K6c) and gate masks (K7) must be equal. K8 and
 K9 (f32 sums of up to 300 terms) are held to f32 1e-4. K1's tensor-core
 body is held to max and mean limits: bf16 5e-2 / 5e-3, and f32 1e-4 /
-1e-5 on one-edge rows, where its attention is exact.
+1e-5 on one-edge rows, where its attention is exact; K2's tensor-core
+body to the same bf16 limits, and K3's two bodies to f32 1e-4 / 1e-5.
 """
 
 import dataclasses
@@ -40,6 +41,7 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_layer_fused,
     block_dense_layer_fused_reference,
     k1_body,
+    k2_body,
 )
 from ruvector_tpu_torch.ops.kernels.flash_neighbor import (
     flash_neighbor_attention,
@@ -78,6 +80,7 @@ from ruvector_tpu_torch.ops.kernels.mincut_gate_block import (
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import (
     fused_neighbor_mix,
     fused_neighbor_mix_reference,
+    k3_body,
 )
 from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather, spmm_gather_reference
 
@@ -220,6 +223,87 @@ def test_block_dense_layer_fused_faults_are_rejected(card):
     assert not _within(block_dense_layer_fused(L, msg, wd, folded, lm, dropout=0.1, eps=1e-5,
                                                variant="no_head0"), want, K1_BF16_TOL)
     assert launch_counts()["block_dense_layer_fused"] == 3
+
+
+# K2's tensor-core body: every width and head count, cycling through ragged
+# B (45, 504), T not a multiple of the 64-row chunk (200, 1000) and lm
+_K2_CASES = [(d, h) + ((45, 200, True), (504, 1000, False), (504, 200, True),
+                       (45, 1000, False))[i % 4]
+             for i, (d, h) in enumerate((d, h) for d in (32, 64, 128) for h in (1, 2, 4, 8))]
+
+
+@pytest.mark.parametrize("d, h, b, t, with_lm", _K2_CASES)
+def test_block_dense_attention_tensor_core_body(card, d, h, b, t, with_lm):
+    """K2 at bf16 compute runs its tensor-core body (`k2_body`) at D in
+    {32, 64, 128} and H in {1, 2, 4, 8}: ragged B, T = 200 and 1000, with
+    and without lm, a degree-0 row, a 1e-7 edge, and rows of 20-100 edges
+    over several 64-row chunks; within the bf16 limits 5e-2 / 5e-3."""
+    L, u, sb, wd, lm, _, _ = _block_inputs(card, torch.bfloat16, nb=2, b=b, t=t, d=d, h=h)
+    lm = lm if with_lm else None
+    assert k2_body(torch.bfloat16) == "tensor_core"
+    got = block_dense_attention(L, u, sb, wd, lm, scale=0.25)
+    want = block_dense_attention_reference(L, u, sb, wd, lm, scale=0.25)
+    assert _within(got, want, K1_BF16_TOL)
+    assert float(got[:, 0, 3].abs().max()) == 0.0  # the degree-0 row
+    assert launch_counts()["block_dense_attention"] == 1
+
+
+def test_block_dense_attention_fault_is_rejected(card):
+    """The online softmax without its correction exp(m_old - m_new) (a
+    test-only instance at D=128, H=4) misses the bf16 limits on rows whose
+    edges span several chunks (T=1024), which the exact body meets."""
+    L, u, sb, wd, lm, _, _ = _block_inputs(card, torch.bfloat16, nb=2, b=504, t=1024, d=128)
+    want = block_dense_attention_reference(L, u, sb, wd, lm, scale=0.25)
+    assert _within(block_dense_attention(L, u, sb, wd, lm, scale=0.25), want, K1_BF16_TOL)
+    assert not _within(block_dense_attention(L, u, sb, wd, lm, scale=0.25,
+                                             variant="no_rescale"), want, K1_BF16_TOL)
+    assert launch_counts()["block_dense_attention"] == 2
+
+
+# K3 against its plain version, (max, mean) of the absolute error: f32 sums
+# in another order
+K3_TOL = (1e-4, 1e-5)
+
+
+def _mix_inputs(dev, n, heads, m, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    u, bias, nbr = (torch.randn(s, generator=g).to(dev)
+                    for s in ((n, heads, d), (n, heads), (n, m, d)))
+    mask = (torch.rand(n, m, generator=g) > 0.3).float().to(dev)
+    mask[5] = 0.0
+    wnorm = torch.rand(n, m, generator=g).to(dev) * mask
+    return u, bias, nbr, mask, wnorm
+
+
+@pytest.mark.parametrize("n, heads, m, d, body", [
+    (4099, 4, 16, 128, "streaming"),   # the main path's widths
+    (1001, 4, 13, 96, "streaming"),
+    (1001, 1, 13, 96, "streaming"),
+    (1001, 2, 16, 64, "streaming"),
+    (1001, 8, 16, 128, "streaming"),
+    (1001, 8, 5, 32, "streaming"),
+    (1001, 16, 13, 96, "warp"),
+    (1001, 4, 20, 128, "warp"),
+    (1001, 4, 13, 98, "warp"),
+])
+def test_fused_neighbor_mix_bodies(card, n, heads, m, d, body):
+    """Both bodies of K3 (`k3_body`) within the float32 limits 1e-4 /
+    1e-5: the streaming body at its limits' edges, the warp body past
+    them (16 heads, M > 16, D % 4 != 0)."""
+    args = _mix_inputs(card, n, heads, m, d)
+    assert k3_body(heads, m, d) == body
+    assert _within(fused_neighbor_mix(*args, heads=heads, scale=0.3),
+                   fused_neighbor_mix_reference(*args, heads=heads, scale=0.3), K3_TOL)
+    assert launch_counts()["fused_neighbor_mix"] == 1
+
+
+def test_fused_neighbor_mix_fault_is_rejected(card):
+    """Slot M-1 left out of every sum (a test-only instance of the
+    streaming body at H=4) misses the float32 limits."""
+    args = _mix_inputs(card, 4099, 4, 16, 128)
+    want = fused_neighbor_mix_reference(*args, heads=4, scale=0.3)
+    assert not _within(fused_neighbor_mix(*args, heads=4, scale=0.3, variant="drop_last_slot"),
+                       want, K3_TOL)
 
 
 @pytest.mark.parametrize("heads", [1, 4, 16])

@@ -39,7 +39,8 @@ from ruvector_tpu_torch.nn.ruvector_layer import (
     ruvector_layer_apply,
     ruvector_layer_apply_single,
 )
-from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
+from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix, k3_body
 
 F32_TOL = 2e-5
 PALLAS_TOL = 1e-4
@@ -106,11 +107,12 @@ def test_layer_use_pallas_route(heads):
              tol=PALLAS_TOL)
 
 
-def test_fused_neighbor_mix_plain_version():
+@pytest.mark.parametrize("n, h, m, d", [(77, 4, 12, 32), (40, 8, 16, 128)])
+def test_fused_neighbor_mix_plain_version(n, h, m, d):
     """K3's plain version against the Pallas kernel on raw inputs: N not a
-    multiple of the JAX tile, an all-masked row, zero weights."""
+    multiple of the JAX tile, an all-masked row, zero weights; also at the
+    widths the card's streaming body reads (8 heads, 16 slots, D=128)."""
     rng = np.random.default_rng(3)
-    n, h, m, d = 77, 4, 12, 32
     u = rng.normal(size=(n, h, d)).astype(np.float32)
     bias = rng.normal(size=(n, h)).astype(np.float32)
     nbr = rng.normal(size=(n, m, d)).astype(np.float32)
@@ -123,6 +125,29 @@ def test_fused_neighbor_mix_plain_version():
                              heads=h, scale=0.3)
     assert got.shape == (n, h + 1, d)
     _compare(got, want, tol=1e-5)
+
+
+@pytest.mark.parametrize("heads, m, d, body", [
+    (4, 16, 128, "streaming"), (1, 13, 96, "streaming"), (8, 1, 4, "streaming"),
+    (16, 16, 128, "warp"), (4, 17, 128, "warp"), (4, 16, 132, "warp"), (4, 16, 98, "warp"),
+])
+def test_k3_body_follows_shape(heads, m, d, body):
+    """K3's streaming body where a node's rows fit its registers (heads
+    1-8, M <= 16, D % 4 == 0, D <= 128), the warp body elsewhere."""
+    assert k3_body(heads, m, d) == body
+
+
+@pytest.mark.parametrize("variant", ["drop_last_slot", "unknown"])
+def test_k3_variants_run_on_the_card_only(variant):
+    """K3's planted fault is a card-only instance: on CPU tensors the
+    wrapper raises instead of taking the plain version, and counts no
+    launch."""
+    n, h, m, d = 9, 4, 16, 32
+    args = [torch.ones(s) for s in ((n, h, d), (n, h), (n, m, d), (n, m), (n, m))]
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        fused_neighbor_mix(*args, heads=h, scale=0.3, variant=variant)
+    assert launch_counts()["fused_neighbor_mix"] == 0
 
 
 @pytest.mark.parametrize("zero_weights", [False, True])
