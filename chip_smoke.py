@@ -107,6 +107,7 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (  # noqa: E402
 from ruvector_tpu_torch.ops.kernels.flash_neighbor import (  # noqa: E402
     flash_neighbor_attention,
     flash_neighbor_attention_reference,
+    k8_body,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (  # noqa: E402
     as_cdt,
@@ -154,6 +155,7 @@ from ruvector_tpu_torch.ops.kernels.neighbor_mix import (  # noqa: E402
 from ruvector_tpu_torch.ops.kernels.spmm import (  # noqa: E402
     spmm_gather,
     spmm_gather_reference,
+    staged_tiles,
 )
 from ruvector_tpu_torch.ops.segment import (  # noqa: E402
     normalized_weights,
@@ -391,6 +393,27 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, iters: int = 10, runs: int = 3) -> float:
+    """Milliseconds of one call on the card: the median over `runs` runs
+    of `iters` calls back to back between two CUDA events, divided by
+    `iters`. The host queues the calls ahead of the card, so its own time
+    per call (the wrapper's checks and the launch) is hidden where it is
+    shorter than the call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -428,8 +451,8 @@ def ptxas_entries(text: str) -> list[dict]:
         if m:
             # the layer's kernels by name and template arguments (mangled)
             short = re.search(r"((?:tc_)?(?:layer|mha_fwd|mha_bwd|signature|gate|attention|"
-                              r"fused_layer|fused|stream_mix|neighbor_mix)_kernelI\w*?)"
-                              r"Ev(?:NS|PK)", m.group(1))
+                              r"fused_layer|fused|stream_mix|neighbor_mix|stream_attention|"
+                              r"spmm_tile)_kernelI\w*?)Ev(?:NS|PK)", m.group(1))
             name = short.group(1) if short else m.group(1)
             if not entries or entries[-1]["entry"] != name:
                 entries.append({"entry": name})
@@ -458,7 +481,7 @@ def phase_build() -> None:
         print("  ptxas:", line, flush=True)
     # the instances of the tensor-core bodies and of the bodies beside them
     for source in ("block_dense_attn", "neighbor_mix", "gated_block_layer", "gated_block_mha",
-                   "gated_block_attn", "mincut_gate_block"):
+                   "gated_block_attn", "mincut_gate_block", "flash_neighbor", "spmm_gather"):
         for e in ptxas_entries(_lib.log_path(source).read_text()):
             say("build_ptxas", source=source, **e)
     # K1's instances must build as before K2's tensor-core body came to
@@ -1584,7 +1607,9 @@ def phase_rerank(d: int) -> dict:
     clustered data) on the card: RR_BATCHES batches of RR_BATCH queries,
     each a corpus row plus RR_NOISE N(0, 1), at ef=RR_EF (K8 once per
     batch) and k=RR_K; the kernel route against the plain flash route on
-    every batch, and the time of each stage on the last batch."""
+    every batch, a control (K8 without the online softmax's rescale, a
+    fault planted in the kernel, on the last batch's pool), and the time
+    of each stage on the last batch."""
     # the brute-force product is float32 at full precision: phase_device
     # turned TF32 off, as every f32 product here needs
     t0 = time.perf_counter()
@@ -1637,6 +1662,12 @@ def phase_rerank(d: int) -> dict:
         raise AssertionError(f"re-rank: the source row is in the top {RR_K} of only "
                              f"{in_topk:.4f} of the queries")
     with torch.no_grad():
+        # control: a fault planted in K8, the online softmax without its
+        # correction exp(m_old - m_new), on the last batch's pool
+        expect_rejected("K8 without the online softmax's rescale", lambda: agree(
+            f"control: K8 body={k8_body(pool, pool)} without the rescale",
+            flash_neighbor_attention(q, pool, pool, variant="no_rescale"),
+            flash_neighbor_attention_reference(q, pool, pool), torch.float32))
         # the stages of one batch (the last one's inputs)
         ctx = flash_neighbor_attention(q, pool, pool)
         stages = {
@@ -1666,9 +1697,11 @@ def phase_csr_spmm(d: int) -> dict:
     whole graph and spmm_csr, each held to spmm_csr within 1e-3 and K9 to
     its plain version at f32 1e-4 / 1e-5; K9 against its plain version on
     the 12,288-row slice and on uniform random indices (M=17, B = N - 1),
-    and the control. The power-law graph (zipf(1.7) x 4 degrees capped at
-    512, uniform destinations, weights U(0.1, 1), seed 0): spmm_bucketed
-    and the max-degree spmm_padded against spmm_csr within 1e-3."""
+    and two controls (a plain version without one edge, and K9 with edge
+    M-1 of every row left out, a fault planted in the kernel). The
+    power-law graph (zipf(1.7) x 4 degrees capped at 512, uniform
+    destinations, weights U(0.1, 1), seed 0): spmm_bucketed and the
+    max-degree spmm_padded against spmm_csr within 1e-3."""
     f32 = torch.float32
     feats, idx, ew = cluster_graph(CSR_NODES, d, CSR_K)
     n = feats.shape[0]
@@ -1700,6 +1733,11 @@ def phase_csr_spmm(d: int) -> dict:
     expect_rejected("K9 against a plain version without one edge", lambda: agree(
         "control: K9 vs plain version without edge (0, 0)", got,
         spmm_gather_reference(feats, idx, w_drop), f32))
+    # control: a fault planted in K9, edge M-1 of every row left out
+    expect_rejected("K9 without edge M-1", lambda: agree(
+        "control: K9 without edge M-1 of each row",
+        spmm_gather(feats, idx, w, variant="drop_last_edge"),
+        spmm_gather_reference(feats, idx, w), f32))
     say("csr_spmm_regular", nodes=n, k=CSR_K, d=d, edges=edges,
         ms=json.dumps(ms, separators=(",", ":")),
         edges_per_s=json.dumps({k: _edges_per_s(edges, v) for k, v in ms.items()},
@@ -1755,6 +1793,7 @@ def serve_report(rr: dict, sp: dict) -> list:
              lambda: flash_neighbor_attention_reference(q, pool, pool),
              _agree_as(f32), bound(nbytes(q, pool) + nbytes(q), k8_ops),
              {"shape": f"B={b}, M=ef={m}, D={d}, k = v = the pool",
+              "body": k8_body(pool, pool),
               "bound_ms_as_passed": bound(nbytes(q, pool, pool) + nbytes(q), k8_ops)[0],
               "library": lambda: F.scaled_dot_product_attention(
                   q[:, None, None], pool[:, None], pool[:, None])[:, 0, 0],
@@ -1768,6 +1807,8 @@ def serve_report(rr: dict, sp: dict) -> list:
                  _agree_as(f32), bound(nbytes(feats, idx, w) + idx.shape[0] * fd * 4,
                                        {f32: 2 * sp["edges"] * fd}),
                  {"shape": f"N=B={feats.shape[0]}, M={idx.shape[1]}, D={fd} (regular graph)",
+                  "body": "bulk_tiles",
+                  "staged_tiles": staged_tiles(idx, feats.shape[0], fd),
                   "gather_bound_ms": n_rows * fd * 4 / PEAK_BYTES_PER_S * 1e3,
                   "library": lambda: F.embedding_bag(idx, feats, per_sample_weights=w,
                                                      mode="sum"),
@@ -1957,6 +1998,9 @@ def main() -> int:
             err = check(f"{name} at main-path shapes", fn(), want)
             ms = time_ms(fn, iters=10)
             plain_ms = time_ms(ref, iters=10, warmup=1)
+            # beside it: calls back to back, the card's time without the
+            # host's launch time where the card waits for it
+            extra["kernel_ms"] = kernel_ms(fn)
             # the one PyTorch call that computes the same function, where
             # there is one: timed as a yardstick, never called by the port
             library = extra.pop("library", None)

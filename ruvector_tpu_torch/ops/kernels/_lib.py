@@ -58,10 +58,11 @@ SIGNATURES = {
         "reduce_partials": [_P] + [_I] * 2 + [_P, _P],
     },
     "flash_neighbor": {
-        "flash_neighbor_f32": [_P] * 5 + [_I] * 3 + [_F, _P],
+        "flash_neighbor_f32": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
     },
     "spmm_gather": {
-        "spmm_gather_f32": [_P] * 4 + [_I] * 4 + [_P],
+        "spmm_gather_f32": [_P] * 4 + [_I] * 5 + [_P],
+        "spmm_gather_rows_per_tile": [_I],
     },
 }
 

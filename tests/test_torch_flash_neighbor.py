@@ -26,6 +26,7 @@ from ruvector_tpu_torch.attention import (
 from ruvector_tpu_torch.ops.kernels.flash_neighbor import (
     flash_neighbor_attention,
     flash_neighbor_attention_reference,
+    k8_body,
 )
 
 K8_TOL = 1e-4
@@ -137,3 +138,23 @@ def test_registry_returns_both_by_name():
                                   scaled_dot_attention(*args).numpy())
     with pytest.raises(KeyError, match="unknown attention"):
         get_attention("no_such_mechanism")
+
+
+def test_k8_body_copies_one_tensor_once():
+    """The kernel copies a chunk once where k and v are one tensor (the
+    re-rank's pool), twice where they are two, equal or not."""
+    q, k, v, _ = _qkv(7, 4, 64, 32)
+    k = torch.from_numpy(k)
+    assert k8_body(k, k) == "ring_kv_once"
+    assert k8_body(k, k.clone()) == "ring_k_and_v"
+    assert k8_body(k, torch.from_numpy(v)) == "ring_k_and_v"
+    assert k8_body(k[:2], k) == "ring_k_and_v"    # the same storage, another shape
+
+
+@pytest.mark.parametrize("variant", ["no_rescale", "no_such_variant"])
+def test_k8_variants_raise_on_cpu_tensors(variant):
+    """The planted fault runs on the card only; an unknown name raises
+    everywhere."""
+    q, k, v, _ = _qkv(8, 4, 16, 128)
+    with pytest.raises(ValueError, match="variant"):
+        flash_neighbor_attention(_t(q), _t(k), _t(v), variant=variant)

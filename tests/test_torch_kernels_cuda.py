@@ -11,7 +11,8 @@ another order; bf16 5e-2, the kernels round softmax weights against a
 running max where the plain versions use the row max. Gradients (K5b)
 are held to the same bounds relative to each tensor's largest magnitude;
 signature counts (K6a/K6b/K6c) and gate masks (K7) must be equal. K8 and
-K9 (f32 sums of up to 300 terms) are held to f32 1e-4. K1's tensor-core
+K9 (f32 sums of up to 300 terms) are held to f32 1e-4, and their bulk-copy
+bodies to 1e-4 / 1e-5 (max / mean). K1's tensor-core
 body is held to max and mean limits: bf16 5e-2 / 5e-3, and f32 1e-4 /
 1e-5 on one-edge rows, where its attention is exact; K2's tensor-core
 body to the same bf16 limits, and K3's two bodies to f32 1e-4 / 1e-5.
@@ -43,9 +44,11 @@ from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     k1_body,
     k2_body,
 )
+from ruvector_tpu_torch.ops.kernels import _lib
 from ruvector_tpu_torch.ops.kernels.flash_neighbor import (
     flash_neighbor_attention,
     flash_neighbor_attention_reference,
+    k8_body,
 )
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     block_gate_signature,
@@ -82,7 +85,12 @@ from ruvector_tpu_torch.ops.kernels.neighbor_mix import (
     fused_neighbor_mix_reference,
     k3_body,
 )
-from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather, spmm_gather_reference
+from ruvector_tpu_torch.ops.kernels.spmm import (
+    rows_per_tile,
+    spmm_gather,
+    spmm_gather_reference,
+    staged_tiles,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -865,3 +873,132 @@ def test_k8_k9_wrappers_raise_on_unsupported_input(card):
         with pytest.raises(ValueError, match=match):
             spmm_gather(*bad)
     assert launch_counts()["spmm_gather"] == 0
+
+
+# K8's and K9's bodies on bulk copies against their plain versions: f32
+# sums in another order, (max, mean) of the absolute error
+F32_TOL = (1e-4, 1e-5)
+
+
+def _f32_within(got, want) -> bool:
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got - want).abs()
+    return float(err.max()) <= F32_TOL[0] and float(err.mean()) <= F32_TOL[1]
+
+
+@pytest.mark.parametrize("b, m, d, masked", [
+    (1024, 256, 128, False),   # the re-rank's shape: a persistent grid walking rows
+    (1000, 256, 128, True),    # B not a multiple of the grid
+    (3, 300, 128, False),      # B smaller than the grid
+    (64, 5, 64, False),        # M < KC
+    (64, 70, 32, True),        # M not a multiple of KC
+    (64, 1, 256, False),       # M = 1
+    (40, 96, 256, True),
+    (50, 512, 64, True),
+])
+def test_flash_neighbor_attention_ring(card, b, m, d, masked):
+    """The ring of bulk copies at its edges, k is v (one copy a chunk) and
+    v = k.clone() (two): both within the float32 limits of the plain
+    version and bit-identical to each other (the same arithmetic, only the
+    copies differ); a chunk whose keys are all masked among valid ones is
+    skipped; two calls repeat bit for bit."""
+    q, k, _, mask = _k8_inputs(card, b, m, d, masked, seed=b + m)
+    if masked and m > 64:
+        mask[:, 32:64] = 0.0                           # a whole chunk masked
+    v = k.clone()
+    assert (k8_body(k, k), k8_body(k, v)) == ("ring_kv_once", "ring_k_and_v")
+    once = flash_neighbor_attention(q, k, k, mask)
+    assert _f32_within(once, flash_neighbor_attention_reference(q, k, k, mask))
+    assert torch.equal(flash_neighbor_attention(q, k, v, mask), once)
+    assert torch.equal(flash_neighbor_attention(q, k, k, mask), once)
+    if masked:
+        assert float(once[3].abs().max()) == 0.0       # fully masked row
+    assert launch_counts()["flash_neighbor_attention"] == 3
+
+
+def test_flash_neighbor_attention_fault_is_rejected(card):
+    """The online softmax without its correction exp(m_old - m_new) (a
+    test-only instance at D = 128) misses the float32 limits at the
+    re-rank's shape; other widths refuse the variant."""
+    q, k, _, _ = _k8_inputs(card, 1024, 256, 128, False, seed=11)
+    want = flash_neighbor_attention_reference(q, k, k)
+    assert not _f32_within(flash_neighbor_attention(q, k, k, variant="no_rescale"), want)
+    q, k, _, _ = _k8_inputs(card, 8, 20, 64, False)
+    with pytest.raises(ValueError, match="D=128 only"):
+        flash_neighbor_attention(q, k, k, variant="no_rescale")
+    assert launch_counts()["flash_neighbor_attention"] == 1
+
+
+def _k9_inputs(dev, n, b, m, d, kind, cluster=128, seed=0):
+    """kind "clustered": row r's neighbours within the `cluster` rows of
+    r's cluster (the regular graph's locality), "random": uniform over
+    [0, n). Two indices out of range in the first tile. Weights U(0, 1) /
+    sqrt(m)."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "clustered":
+        base = (torch.arange(b)[:, None] // cluster) * cluster
+        idx = (base + torch.randint(0, cluster, (b, m), generator=g)) % n
+    else:
+        idx = torch.randint(0, n, (b, m), generator=g)
+    idx = idx.int()
+    if m >= 3 and b >= 5:
+        idx[1, 2], idx[4, 0] = -3, n + 7
+    feats = torch.randn(n, d, generator=g)
+    w = torch.rand(b, m, generator=g) / max(m, 1) ** 0.5
+    return feats.to(dev), idx.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("n, b, m, d, kind, cluster, staged", [
+    (4096, 4096, 16, 128, "clustered", 128, "all"),  # the regular graph's tiles
+    (4096, 4000, 16, 128, "random", 128, "none"),    # ragged last tile
+    (3000, 1000, 17, 128, "clustered", 128, "some"),  # B != N, 120-row tiles
+    (1000, 700, 16, 260, "clustered", 128, "none"),  # 128 rows of 1040 B: over 64 KB
+    (1000, 300, 64, 260, "clustered", 32, "all"),    # 32-row tiles and windows
+    (1000, 300, 12, 260, "random", 128, "none"),
+    (600, 500, 64, 512, "clustered", 32, "all"),
+    (600, 500, 16, 512, "clustered", 128, "none"),
+    (2000, 64, 40, 32, "clustered", 128, "all"),
+    (2000, 1000, 19, 64, "clustered", 64, "all"),   # 2033-edge tiles: words loaded plainly
+    (500, 6, 3000, 64, "clustered", 128, "all"),     # a row longer than a batch
+])
+def test_spmm_gather_tiles(card, n, b, m, d, kind, cluster, staged):
+    """K9's tiles, staged (the window of feature rows in shared memory) and
+    gathering from device memory, within the float32 limits of the plain
+    version, with indices out of range inside a staged tile; two calls
+    repeat bit for bit."""
+    feats, idx, w = _k9_inputs(card, n, b, m, d, kind, cluster, seed=n + m)
+    share = staged_tiles(idx, n, d)
+    assert {"all": share == 1.0, "none": share == 0.0, "some": 0.0 < share < 1.0}[staged]
+    got = spmm_gather(feats, idx, w)
+    assert _f32_within(got, spmm_gather_reference(feats, idx, w))
+    assert torch.equal(spmm_gather(feats, idx, w), got)
+    assert launch_counts()["spmm_gather"] == 2
+
+
+def test_spmm_gather_unaligned_index_views(card):
+    """Indices and weights that start off a 16-byte line (views one row
+    in): the producer warp loads a tile's words plainly, no bulk copy."""
+    feats, idx, w = _k9_inputs(card, 2048, 1025, 3, 128, "clustered")
+    i2, w2 = idx[1:], w[1:]
+    assert i2.data_ptr() % 16 != 0 and i2.is_contiguous()
+    assert _f32_within(spmm_gather(feats, i2, w2), spmm_gather_reference(feats, i2, w2))
+    assert launch_counts()["spmm_gather"] == 1
+
+
+def test_spmm_gather_fault_is_rejected(card):
+    """Edge M - 1 of each row left out (a test-only instance at D = 128)
+    misses the float32 limits on staged tiles; other widths refuse it."""
+    feats, idx, w = _k9_inputs(card, 4096, 4096, 16, 128, "clustered")
+    assert not _f32_within(spmm_gather(feats, idx, w, variant="drop_last_edge"),
+                           spmm_gather_reference(feats, idx, w))
+    feats, idx, w = _k9_inputs(card, 100, 50, 4, 64, "random")
+    with pytest.raises(ValueError, match="D=128 only"):
+        spmm_gather(feats, idx, w, variant="drop_last_edge")
+    assert launch_counts()["spmm_gather"] == 1
+
+
+def test_spmm_gather_rows_per_tile_matches_the_kernel(card):
+    lib = _lib.load("spmm_gather")
+    for m in (0, 1, 3, 16, 17, 40, 1024, 1025, 2048, 3000):
+        assert lib.spmm_gather_rows_per_tile(m) == rows_per_tile(m)

@@ -31,7 +31,14 @@ from ruvector_tpu_torch.ops import (
     spmm_bucketed,
     spmm_csr,
 )
-from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather, spmm_gather_reference
+from ruvector_tpu_torch.ops.kernels.spmm import (
+    TILE_EDGES,
+    WINDOW_BYTES,
+    rows_per_tile,
+    spmm_gather,
+    spmm_gather_reference,
+    staged_tiles,
+)
 
 TOL = 1e-5
 K9_TOL = 1e-4
@@ -157,3 +164,70 @@ def test_spmm_gather_plain_version_skips_indices_out_of_range():
                                    jnp.ones((b, m), jnp.float32)))
     got = spmm_gather_reference(_t(feats), _t(bad), _t(w))
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("m, rows", [(0, 128), (1, 128), (16, 128), (17, 120), (40, 51),
+                                     (1024, 2), (1025, 1), (3000, 1)])
+def test_k9_rows_per_tile(m, rows):
+    """A tile holds as many rows as TILE_EDGES edges, 1..128."""
+    assert rows_per_tile(m) == rows
+
+
+def _staged_share_by_loops(idx: np.ndarray, n: int, d: int) -> float:
+    """The kernel's per-tile rule written out: each batch of a tile's
+    edges (flattened rows, at most TILE_EDGES at once) is staged when its
+    indices in [0, n) span at most WINDOW_BYTES of feature rows."""
+    b, m = idx.shape
+    r = rows_per_tile(m)
+    flags = []
+    for r0 in range(0, b, r):
+        edges = idx[r0:r0 + r].reshape(-1)
+        for e0 in range(0, edges.size, TILE_EDGES):
+            part = edges[e0:e0 + TILE_EDGES]
+            ok = part[(part >= 0) & (part < n)]
+            flags.append(ok.size > 0 and (int(ok.max()) - int(ok.min()) + 1) * d * 4
+                         <= WINDOW_BYTES)
+    return float(np.mean(flags))
+
+
+@pytest.mark.parametrize("n, b, m, d, kind", [
+    (1000, 300, 16, 128, "clustered"),   # 128-row clusters: every tile staged
+    (1000, 300, 16, 512, "clustered"),   # 40 rows fit at D = 512: none staged
+    (400, 250, 16, 128, "mixed"),        # one tile staged, one not
+    (2000, 333, 17, 128, "random"),      # ragged last tile, no tile staged
+    (300, 5, 2500, 32, "clustered"),     # rows longer than a batch
+])
+def test_k9_staged_tiles_share(n, b, m, d, kind):
+    """`staged_tiles` (vectorised, what chip_smoke.py reports) equals the
+    kernel's rule tile by tile, with out-of-range indices that neither
+    widen a window nor count."""
+    rng = np.random.default_rng(n + m)
+    if kind == "random":
+        idx = rng.integers(0, n, size=(b, m))
+    else:
+        base = (np.arange(b)[:, None] // 128) * 128
+        idx = (base + rng.integers(0, 128, size=(b, m))) % n
+        if kind == "mixed":  # the first tile clustered, the second random
+            idx[128:] = rng.integers(0, n, size=(b - 128, m))
+    idx = idx.astype(np.int32)
+    idx[1, 2], idx[3, 0] = -5, n + 1000
+    got = staged_tiles(torch.from_numpy(idx), n, d)
+    assert got == _staged_share_by_loops(idx, n, d)
+    cluster_fits = 128 * d * 4 <= WINDOW_BYTES
+    assert got == {"clustered": float(cluster_fits), "random": 0.0, "mixed": 0.5}[kind]
+
+
+def test_k9_staged_tiles_of_empty_inputs():
+    assert staged_tiles(torch.zeros((0, 16), dtype=torch.int32), 10, 128) == 0.0
+    assert staged_tiles(torch.zeros((5, 0), dtype=torch.int32), 10, 128) == 0.0
+    assert staged_tiles(torch.full((5, 3), -1, dtype=torch.int32), 10, 128) == 0.0
+
+
+@pytest.mark.parametrize("variant", ["drop_last_edge", "no_such_variant"])
+def test_k9_variants_raise_on_cpu_tensors(variant):
+    """The planted fault runs on the card only; an unknown name raises
+    everywhere."""
+    feats = torch.zeros(10, 128)
+    idx = torch.zeros(4, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="variant"):
+        spmm_gather(feats, idx, torch.ones(4, 3), variant=variant)
