@@ -12,6 +12,13 @@ card:
     kernel, applied a few times to its own output. The other kernel
     routes (block-dense attention, slot neighbor-mix) and the 2-layer
     RuvectorNet run on the same graph.
+  * the GNN model family and the attention family on the same graph and
+    features (`[gnn_family]`, no kernel): the 2-layer GraphSAGE of
+    BASELINE config 2 (fanouts (10, 10)) and the GAT layer of config 3,
+    a GCN layer, message passing, each per-node attention mechanism
+    through the registry, local-global and sheaf attention as sequences,
+    and three trainable Adam steps, each card output against the same
+    function on the CPU.
   * the min-cut-gated graph transformer's serving path (BASELINE config
     5, benchmarks/config5_r03.py): 999,936 nodes in clusters of 128 with
     exact within-cluster k=16 kNN made on the card, 256-node partitions
@@ -68,7 +75,17 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ruvector_tpu_torch.attention import flash_attention  # noqa: E402
+from ruvector_tpu_torch.attention import (  # noqa: E402
+    EdgeFeaturedConfig,
+    LinearAttentionConfig,
+    TrainableAttention,
+    flash_attention,
+    get_attention,
+)
+from ruvector_tpu_torch.attention.info_bottleneck import IBConfig  # noqa: E402
+from ruvector_tpu_torch.attention.pde import DiffusionConfig  # noqa: E402
+from ruvector_tpu_torch.attention.sheaf import SheafAttentionConfig  # noqa: E402
+from ruvector_tpu_torch.attention.transport import TransportConfig  # noqa: E402
 from ruvector_tpu_torch.graph import (  # noqa: E402
     CSRGraph,
     NeighborGraph,
@@ -78,10 +95,22 @@ from ruvector_tpu_torch.graph import (  # noqa: E402
 from ruvector_tpu_torch.graph_transformer import gated  # noqa: E402
 from ruvector_tpu_torch.index import FlatIndex  # noqa: E402
 from ruvector_tpu_torch.models import (  # noqa: E402
+    GATConfig,
+    GCNConfig,
+    GraphSAGENetConfig,
     RuvectorNetConfig,
+    gat_apply,
+    gat_init,
+    gcn_apply,
+    gcn_init,
+    graphsage_apply,
+    graphsage_net_apply,
+    graphsage_net_init,
     ruvector_net_apply,
     ruvector_net_init,
+    sample_fanout,
 )
+from ruvector_tpu_torch.models.message_passing import propagate  # noqa: E402
 from ruvector_tpu_torch.nn.block_dense_layer import (  # noqa: E402
     fold_layer_params,
     ruvector_layer_apply_block_dense,
@@ -181,6 +210,7 @@ from ruvector_tpu_torch.training import (  # noqa: E402
     make_train_step,
     sample_negatives,
 )
+from ruvector_tpu_torch.training.optimizers import tree_map  # noqa: E402
 
 DEV = torch.device("cuda")
 N_NODES = 100_000   # bench.py's headline graph
@@ -297,6 +327,13 @@ CSR_NODES, CSR_K, K9_SLICE, PL_NODES = 99_840, 16, 12_288, 50_000
 # K8 against its plain version: (B, M, D, masked) at the re-rank's shape,
 # at benchmarks/suite.py:174's shape with a random mask, and ragged
 K8_PARITY = ((1024, 256, 128, False), (1024, 512, 128, True), (1000, 300, 64, True))
+# the GNN model family on the main graph: BASELINE config 2 (benchmarks/
+# suite.py:151-165: 2-layer GraphSAGE, fanouts (10, 10), d=128) and config
+# 3 (a GAT layer); the per-node attention forms checked on their first
+# GNN_ROWS rows, the sequence forms at their lengths; the trainable step's
+# batch of nodes
+GNN_FANOUTS, GNN_ROWS, GNN_LG_S, GNN_SHEAF_S = (10, 10), 8192, 4096, 8192
+GNN_TRAIN_BATCH, GNN_TRAIN_STEPS = 4096, 3
 
 
 def say(phase: str, **fields) -> None:
@@ -1381,6 +1418,157 @@ def phase_halo_signature_control(halo: dict, gparams, gcfg) -> None:
     torch.cuda.synchronize()
 
 
+def _tree_cpu(tree):
+    return None if tree is None else tree_map(lambda t: t.cpu(), tree)
+
+
+def agree_cpu(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A card output against the same port function run on the CPU in
+    float32 with the same parameters: the f32 limits."""
+    return agree(f"{name}: card vs CPU", got.cpu(), want, torch.float32)
+
+
+def phase_gnn_family(feats: torch.Tensor, graph: NeighborGraph, d: int, heads: int) -> None:
+    """The GNN model family and the attention family on the 100k-node
+    graph (`[gnn_family]`), seed-0 weights on the card. BASELINE config 2:
+    the 2-layer GraphSAGE (fanouts (10, 10), mean, normalised, 128 wide),
+    its host sampling (`sample_s`) apart from its forward (`sage_ms`);
+    config 3: a GAT layer (4 heads, the edge weight as a 1-d edge
+    feature, the residual); a GCN layer; `propagate` with each
+    aggregator. Then each per-node mechanism of the family through the
+    registry (q = features, k = v = the 16 neighbors' features, the
+    graph's mask), the sequence forms (local-global at S=4096, sheaf at
+    S=8192 with the quantile over 6.7e7 energies) and 3 trainable Adam
+    steps of the edge-featured mechanism on 4096 nodes. No kernel runs
+    here: the paths are plain PyTorch, so each card output is held
+    against the same function on the CPU (the whole graph for the
+    models, the first GNN_ROWS rows for the per-node mechanisms) within
+    the f32 limits; a GAT with its LeakyReLU slope set to 0 must be
+    rejected. Times: medians of 10 calls (CUDA events)."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    n = graph.num_nodes
+    edges = int((graph.nbr_mask > 0).sum())
+    feats_c = feats.cpu()
+    graph_c = NeighborGraph(graph.nbr_idx.cpu(), graph.nbr_mask.cpu(), graph.edge_weight.cpu())
+    fields = {}
+
+    # BASELINE config 2: sampling on the host, then the forward
+    sage_cfg = GraphSAGENetConfig(in_features=d, hidden_features=d, out_features=d,
+                                  fanouts=GNN_FANOUTS)
+    sage_p = graphsage_net_init(0, sage_cfg, device=DEV)
+    t0 = time.perf_counter()
+    samples = [sample_fanout(graph, lc.num_samples, seed=42 + i)
+               for i, lc in enumerate(sage_cfg.layer_cfgs())]
+    torch.cuda.synchronize()
+    fields["sample_s"] = round(time.perf_counter() - t0, 3)
+
+    def sage(params, x, smp):
+        for p, lc, (idx, mask) in zip(params, sage_cfg.layer_cfgs(), smp):
+            x = graphsage_apply(p, lc, x, idx, mask)
+        return x
+
+    sage_out = sage(sage_p, feats, samples)
+    if not torch.equal(graphsage_net_apply(sage_p, sage_cfg, feats, graph), sage_out):
+        raise AssertionError("graphsage_net_apply differs from its layers on the same samples")
+    agree_cpu("GraphSAGE 2 layers", sage_out,
+              sage(_tree_cpu(sage_p), feats_c, _tree_cpu(samples)))
+    fields["sage_ms"] = time_ms(lambda: sage(sage_p, feats, samples), iters=10)
+    fields["sage_nodes_per_s"] = n / (fields["sage_ms"] * 1e-3)
+
+    # BASELINE config 3: the GAT layer, and its planted control
+    gat_cfg = GATConfig(node_dim=d, num_heads=heads, edge_dim=1, residual=True)
+    gat_p = gat_init(0, gat_cfg, device=DEV)
+    gat_want = gat_apply(_tree_cpu(gat_p), gat_cfg, feats_c, graph_c)
+    agree_cpu("GAT", gat_apply(gat_p, gat_cfg, feats, graph), gat_want)
+    slope0 = dataclasses.replace(gat_cfg, negative_slope=0.0)
+    expect_rejected("GAT with LeakyReLU slope 0", lambda: agree_cpu(
+        "GAT, slope 0 (control)", gat_apply(gat_p, slope0, feats, graph), gat_want))
+    fields["gat_ms"] = time_ms(lambda: gat_apply(gat_p, gat_cfg, feats, graph), iters=10)
+    fields["gat_edges_per_s"] = edges / (fields["gat_ms"] * 1e-3)
+
+    gcn_cfg = GCNConfig(in_features=d, out_features=d)
+    gcn_p = gcn_init(0, gcn_cfg, device=DEV)
+    agree_cpu("GCN", gcn_apply(gcn_p, gcn_cfg, feats, graph),
+              gcn_apply(_tree_cpu(gcn_p), gcn_cfg, feats_c, graph_c))
+    fields["gcn_ms"] = time_ms(lambda: gcn_apply(gcn_p, gcn_cfg, feats, graph), iters=10)
+    for agg in ("sum", "mean", "max"):
+        agree_cpu(f"propagate {agg}", propagate(feats, graph, aggregate=agg),
+                  propagate(feats_c, graph_c, aggregate=agg))
+        fields[f"propagate_{agg}_ms"] = time_ms(
+            lambda: propagate(feats, graph, aggregate=agg), iters=10)
+
+    # the per-node mechanisms: q = features, k = v = the neighbors'. The
+    # linear mechanism on the ReLU kernel: FAVOR+ (the default) underflows
+    # to 0 at these features' ||x||^2 ~ 136, and ELU's normaliser nears 0
+    nbr = feats[graph.nbr_idx.long()]
+    rows = slice(0, GNN_ROWS)
+    q_c, nbr_c, mask_c = feats_c[rows], nbr[rows].cpu(), graph_c.nbr_mask[rows]
+    mechanisms = {
+        "edge_featured": EdgeFeaturedConfig(node_dim=d, num_heads=heads),
+        "linear": LinearAttentionConfig(dim=d, kernel="relu"),
+        "hyperbolic": None,
+        "diffusion": DiffusionConfig(dim=d),
+        "sliced_wasserstein": TransportConfig(dim=d),
+        "centroid_ot": TransportConfig(dim=d),
+        "info_bottleneck": IBConfig(dim=d),
+    }
+    for name, cfg in mechanisms.items():
+        mech = get_attention(name)
+        params = mech.init(0, cfg, DEV) if mech.init is not None else None
+        out = mech.apply(params, cfg, feats, nbr, nbr, graph.nbr_mask)
+        if out.shape != (n, d) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: output not finite or of the wrong shape")
+        agree_cpu(f"{name} attention, first {GNN_ROWS} rows", out[rows],
+                  mech.apply(_tree_cpu(params), cfg, q_c, nbr_c, nbr_c, mask_c))
+        fields[f"{name}_ms"] = time_ms(
+            lambda: mech.apply(params, cfg, feats, nbr, nbr, graph.nbr_mask), iters=10)
+    del nbr
+
+    # the sequence forms over the first S nodes' features
+    lg = get_attention("local_global")
+    x_lg = feats[:GNN_LG_S]
+    agree_cpu(f"local_global S={GNN_LG_S}", lg.apply(None, None, x_lg, x_lg, x_lg, None,
+                                                      local_window=64, num_global=4),
+              lg.apply(None, None, x_lg.cpu(), x_lg.cpu(), x_lg.cpu(), None,
+                       local_window=64, num_global=4))
+    fields["local_global_ms"] = time_ms(lambda: lg.apply(
+        None, None, x_lg, x_lg, x_lg, None, local_window=64, num_global=4), iters=10)
+    sheaf = get_attention("sheaf")
+    sheaf_cfg = SheafAttentionConfig(dim=d, restriction_dim=d, residual_sparse_threshold=0.5)
+    sheaf_p = sheaf.init(0, sheaf_cfg, DEV)
+    x_sh = feats[:GNN_SHEAF_S]
+    agree_cpu(f"sheaf S={GNN_SHEAF_S}, threshold 0.5",
+              sheaf.apply(sheaf_p, sheaf_cfg, x_sh, x_sh, x_sh),
+              sheaf.apply(_tree_cpu(sheaf_p), sheaf_cfg, x_sh.cpu(), x_sh.cpu(), x_sh.cpu()))
+    fields["sheaf_ms"] = time_ms(lambda: sheaf.apply(sheaf_p, sheaf_cfg, x_sh, x_sh, x_sh),
+                                 iters=10)
+
+    # three trainable steps: edge-featured attention of a batch of nodes
+    # over their neighborhoods, fitted to the nodes' own features
+    ta = TrainableAttention("edge_featured", EdgeFeaturedConfig(node_dim=d, num_heads=heads),
+                            seed=0, device=DEV)
+    start = [p.clone() for p in _flat_dict(ta.params)]
+    batch = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:GNN_TRAIN_BATCH]
+    batch = batch.to(DEV)
+    q_b, k_b = feats[batch], feats[graph.nbr_idx[batch].long()]
+    losses, steps_ms = [], []
+    for _ in range(GNN_TRAIN_STEPS):
+        loss, ms = _synced_ms(lambda: ta.train_step(q_b, k_b, k_b, q_b))
+        losses.append(loss)
+        steps_ms.append(round(ms, 3))
+    moved = max(float((a - b).abs().max()) for a, b in zip(_flat_dict(ta.params), start))
+    if not all(np.isfinite(losses)) or not moved > 0:
+        raise AssertionError(f"trainable steps: losses {losses}, parameters moved {moved}")
+
+    if kernels.launch_counts() != before:
+        raise AssertionError("the GNN and attention families launched a kernel")
+    say("gnn_family", nodes=n, d=d, edges=edges, fanouts=list(GNN_FANOUTS), heads=heads,
+        **fields, trainable_steps_ms=steps_ms, trainable_losses=losses,
+        trainable_max_param_move=moved, kernel_launches=0,
+        seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def phase_contrastive(params, cfg, feats, graph) -> None:
     """The RuvectorLayer's contrastive train step (TrainConfig defaults:
     batch 256, 64 negatives, tau 0.07) with Adam (lr 1e-3) on the 100k-node
@@ -1901,6 +2089,7 @@ def main() -> int:
     if net_out.shape != (N_NODES, d) or not bool(torch.isfinite(net_out).all()):
         raise AssertionError("RuvectorNet output is not finite or has the wrong shape")
     say("ruvector_net", layers=2, nodes=N_NODES, d=d, heads=heads, finite=True)
+    phase_gnn_family(feats, graph, d, heads)
 
     # --- config 5: the gated graph transformer's serving path ---------------
     with torch.no_grad():

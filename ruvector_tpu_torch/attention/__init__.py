@@ -1,5 +1,14 @@
-"""Attention: the mechanism registry with the parameter-free scaled-dot
-and flash mechanisms, and the device min-cut gate (push-relabel)."""
+"""Attention: the mechanism registry and its mechanisms (scaled-dot, flash,
+linear, local-global, edge-featured, hyperbolic, diffusion, sliced
+Wasserstein, centroid OT, sheaf, information bottleneck), graph RoPE, the
+sparse mask builder, the trainable adapter, and the device min-cut gate
+(push-relabel).
+
+Every mechanism has the batched form attend(q [B, D], k [B, S, D],
+v [B, S, Dv], mask [B, S]) -> [B, Dv] (local-global and sheaf the
+sequence form over [S, D]); `get_attention(name)` returns it and
+`list_attention()` the names.
+"""
 
 from ruvector_tpu_torch.attention.base import (
     AttentionMechanism,
@@ -7,10 +16,48 @@ from ruvector_tpu_torch.attention.base import (
     list_attention,
     register_attention,
 )
+from ruvector_tpu_torch.attention.edge_featured import (
+    EdgeFeaturedConfig,
+    edge_featured_apply,
+    edge_featured_init,
+)
 from ruvector_tpu_torch.attention.flash import flash_attention
+from ruvector_tpu_torch.attention.hyperbolic import (
+    exp_map,
+    hyperbolic_attention,
+    log_map,
+    mobius_add,
+    mobius_scalar_mult,
+    poincare_distance,
+    project_to_ball,
+)
+from ruvector_tpu_torch.attention.linear_attn import (
+    LinearAttentionConfig,
+    linear_attention_apply,
+    linear_attention_init,
+)
+from ruvector_tpu_torch.attention.local_global import local_global_attention
+from ruvector_tpu_torch.attention.mask import SparseMaskBuilder
 from ruvector_tpu_torch.attention.mincut_device import mincut_gate_device, mincut_gate_stats
+from ruvector_tpu_torch.attention.rope import graph_rope_encode, rope_rotate
 from ruvector_tpu_torch.attention.scaled_dot import scaled_dot_attention
+from ruvector_tpu_torch.attention.trainable import Gradients, TrainableAttention
 
-__all__ = ["AttentionMechanism", "flash_attention", "get_attention", "list_attention",
-           "mincut_gate_device", "mincut_gate_stats", "register_attention",
-           "scaled_dot_attention"]
+# the rest of the family registers itself on import
+from ruvector_tpu_torch.attention import info_bottleneck as _ib  # noqa: F401
+from ruvector_tpu_torch.attention import pde as _pde  # noqa: F401
+from ruvector_tpu_torch.attention import sheaf as _sheaf  # noqa: F401
+from ruvector_tpu_torch.attention import transport as _transport  # noqa: F401
+
+__all__ = [
+    "AttentionMechanism", "get_attention", "list_attention", "register_attention",
+    "scaled_dot_attention", "flash_attention",
+    "LinearAttentionConfig", "linear_attention_init", "linear_attention_apply",
+    "local_global_attention",
+    "EdgeFeaturedConfig", "edge_featured_init", "edge_featured_apply",
+    "poincare_distance", "mobius_add", "mobius_scalar_mult", "exp_map", "log_map",
+    "project_to_ball", "hyperbolic_attention",
+    "graph_rope_encode", "rope_rotate",
+    "SparseMaskBuilder", "TrainableAttention", "Gradients",
+    "mincut_gate_device", "mincut_gate_stats",
+]

@@ -14,6 +14,19 @@ import torch
 
 import ruvector_tpu_torch.ops.kernels as kernels
 from ruvector_tpu_torch import resolve_device
+from ruvector_tpu_torch.attention import (
+    EdgeFeaturedConfig,
+    LinearAttentionConfig,
+    SparseMaskBuilder,
+    TrainableAttention,
+    edge_featured_init,
+    linear_attention_init,
+)
+from ruvector_tpu_torch.attention.info_bottleneck import IBConfig, ib_init
+from ruvector_tpu_torch.attention.local_global import local_global_mask
+from ruvector_tpu_torch.attention.rope import rope_tables
+from ruvector_tpu_torch.attention.sheaf import SheafAttentionConfig, sheaf_init
+from ruvector_tpu_torch.attention.transport import TransportConfig, transport_init
 from ruvector_tpu_torch.convert import params_from_numpy
 from ruvector_tpu_torch.graph import NeighborGraph, build_block_dense, build_knn_graph
 from ruvector_tpu_torch.graph_transformer import (
@@ -21,7 +34,16 @@ from ruvector_tpu_torch.graph_transformer import (
     gated_graph_transformer_init,
 )
 from ruvector_tpu_torch.index import FlatIndex
-from ruvector_tpu_torch.models import RuvectorNetConfig, ruvector_net_init
+from ruvector_tpu_torch.models import (
+    GATConfig,
+    GCNConfig,
+    GraphSAGENetConfig,
+    RuvectorNetConfig,
+    gat_init,
+    gcn_init,
+    graphsage_net_init,
+    ruvector_net_init,
+)
 from ruvector_tpu_torch.nn.ruvector_layer import RuvectorLayerConfig, ruvector_layer_init
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
@@ -53,6 +75,7 @@ import ruvector_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ruvector_tpu_torch.__path__, "ruvector_tpu_torch.")]
 assert "ruvector_tpu_torch.training.train" in names and "ruvector_tpu_torch.ops.distance" in names
 assert "ruvector_tpu_torch.serve.rerank" in names and "ruvector_tpu_torch.ops.kernels.spmm" in names
+assert "ruvector_tpu_torch.models.graphsage" in names and "ruvector_tpu_torch.attention.sheaf" in names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -64,12 +87,13 @@ print(len(names), bad)
 def test_imports_no_jax_and_no_jax_package():
     """Whole module names: `ruvector_tpu_torch` starts with `ruvector_tpu`.
     The walk covers every module, the training package, the distance ops,
-    the serving path and the K8/K9 wrappers included."""
+    the serving path, the K8/K9 wrappers, the GNN model family and the
+    attention family included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 38
+    assert int(count) >= 64
     assert bad == "[]"
 
 
@@ -91,6 +115,18 @@ _ENTRY_POINTS = {
         np.zeros((4, 1), np.int32), np.ones((4, 1), np.float32),
         np.ones((4, 1), np.float32), block=4),
     "FlatIndex": lambda: FlatIndex(dim=4),
+    "gcn_init": lambda: gcn_init(0, GCNConfig(8, 8)),
+    "gat_init": lambda: gat_init(0, GATConfig(node_dim=8, num_heads=2)),
+    "graphsage_net_init": lambda: graphsage_net_init(0, GraphSAGENetConfig(8, 8, 8)),
+    "edge_featured_init": lambda: edge_featured_init(0, EdgeFeaturedConfig(8, 2, 2)),
+    "linear_attention_init": lambda: linear_attention_init(0, LinearAttentionConfig(8)),
+    "transport_init": lambda: transport_init(0, TransportConfig(dim=8)),
+    "sheaf_init": lambda: sheaf_init(0, SheafAttentionConfig(dim=8, restriction_dim=8)),
+    "ib_init": lambda: ib_init(0, IBConfig(dim=8, bottleneck_dim=4)),
+    "TrainableAttention": lambda: TrainableAttention("hyperbolic"),
+    "SparseMaskBuilder": lambda: SparseMaskBuilder(8),
+    "rope_tables": lambda: rope_tables(8, 4),
+    "local_global_mask": lambda: local_global_mask(8, 2, 1),
 }
 
 
@@ -105,6 +141,34 @@ def test_cpu_requested_explicitly_runs():
     assert resolve_device("cpu") == torch.device("cpu")
     params = ruvector_layer_init(0, RuvectorLayerConfig(8, 8, heads=2), device="cpu")
     assert params["w_msg"]["kernel"].device.type == "cpu"
+
+
+_CPU_INITS = {
+    "gcn_init": lambda: gcn_init(0, GCNConfig(8, 8), device="cpu"),
+    "gat_init": lambda: gat_init(0, GATConfig(node_dim=8, num_heads=2), device="cpu"),
+    "graphsage_net_init": lambda: graphsage_net_init(0, GraphSAGENetConfig(8, 8, 8),
+                                                     device="cpu"),
+    "edge_featured_init": lambda: edge_featured_init(0, EdgeFeaturedConfig(8, 2, 2),
+                                                     device="cpu"),
+    "linear_attention_init": lambda: linear_attention_init(0, LinearAttentionConfig(8),
+                                                           device="cpu"),
+    "transport_init": lambda: transport_init(0, TransportConfig(dim=8), device="cpu"),
+    "sheaf_init": lambda: sheaf_init(0, SheafAttentionConfig(dim=8, restriction_dim=8),
+                                     device="cpu"),
+    "ib_init": lambda: ib_init(0, IBConfig(dim=8, bottleneck_dim=4), device="cpu"),
+    "TrainableAttention": lambda: TrainableAttention(
+        "edge_featured", EdgeFeaturedConfig(8, 2, 2), device="cpu").params,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CPU_INITS))
+def test_family_inits_run_on_the_cpu_when_asked(name):
+    """The GNN and attention families' init entry points with
+    device="cpu": every parameter on the CPU."""
+    from ruvector_tpu_torch.training.optimizers import tree_leaves
+
+    leaves = tree_leaves(_CPU_INITS[name]())
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
 
 
 def _k3_inputs(device):
