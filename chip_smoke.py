@@ -19,6 +19,12 @@ card:
     through the registry, local-global and sheaf attention as sequences,
     and three trainable Adam steps, each card output against the same
     function on the CPU.
+  * the rest of the attention family (`[attention_rest]`, no kernel) on
+    the same graph: dual-space, mixed-curvature, Lorentz-cascade,
+    coherence-gated and mixture-of-experts attention per node, the ten
+    SDK presets, the min-cut gate over the 390 consecutive 256-node
+    sequences (its masks against the host Dinic) and the coherence-gated
+    transformer over 8192 nodes, each against the CPU.
   * the min-cut-gated graph transformer's serving path (BASELINE config
     5, benchmarks/config5_r03.py): 999,936 nodes in clusters of 128 with
     exact within-cluster k=16 kNN made on the card, 256-node partitions
@@ -43,6 +49,10 @@ card:
   * the attention re-rank (`[rerank]`): `retrieve_and_rerank` over a
     1,000,000 x 128 corpus, 4 batches of 1024 queries at ef=256, which
     takes the K8 kernel.
+  * vector quantization (`[quantization]`, no kernel) on the re-rank's
+    1M x 128 corpus with 1024 queries: scalar int8, int4, PQ and binary
+    codes with their distances, tiered compression at every level, the
+    Q15 ops, and both temporal tiered stores, each against the CPU.
   * the CSR SpMM path (`[csr_spmm]`, after benchmarks/csr_spmm_bench.py):
     the padded SpMM, the K9 gather-fused SpMM on the whole graph and the
     CSR SpMM on a regular 99,840-node k=16 graph; the degree-bucketed,
@@ -60,6 +70,7 @@ package beside this script.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -76,15 +87,42 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from ruvector_tpu_torch.attention import (  # noqa: E402
+    PRESETS,
+    CgtConfig,
+    EarlyExitConfig,
     EdgeFeaturedConfig,
     LinearAttentionConfig,
+    MoEAttentionConfig,
+    SparseResidualConfig,
+    TokenRouterConfig,
     TrainableAttention,
+    cgt_forward,
+    cgt_init,
+    dynamic_min_cut,
     flash_attention,
     get_attention,
+    lane_statistics,
+    preset,
+    residual_sparse_mask,
+    route_by_energy,
 )
+from ruvector_tpu_torch.attention.cgt import early_exit_result, sparsity_statistics  # noqa: E402
+from ruvector_tpu_torch.attention.dual_space import DualSpaceConfig  # noqa: E402
 from ruvector_tpu_torch.attention.info_bottleneck import IBConfig  # noqa: E402
+from ruvector_tpu_torch.attention.mincut_device import (  # noqa: E402
+    attn_mincut_device_batched,
+    mincut_gate_stats,
+)
+from ruvector_tpu_torch.attention.mixed_curvature import (  # noqa: E402
+    MixedCurvatureConfig,
+    lorentz_cascade_attention,
+)
 from ruvector_tpu_torch.attention.pde import DiffusionConfig  # noqa: E402
-from ruvector_tpu_torch.attention.sheaf import SheafAttentionConfig  # noqa: E402
+from ruvector_tpu_torch.attention.sheaf import SheafAttentionConfig, edge_energies  # noqa: E402
+from ruvector_tpu_torch.attention.topology import (  # noqa: E402
+    TopologyConfig,
+    coherence_gated_attention,
+)
 from ruvector_tpu_torch.attention.transport import TransportConfig  # noqa: E402
 from ruvector_tpu_torch.graph import (  # noqa: E402
     CSRGraph,
@@ -122,7 +160,8 @@ from ruvector_tpu_torch.nn.ruvector_layer import (  # noqa: E402
     ruvector_layer_apply,
     ruvector_layer_init,
 )
-from ruvector_tpu_torch.ops import kernels  # noqa: E402
+from ruvector_tpu_torch.ops import kernels, temporal_tensor, temporal_tiers  # noqa: E402
+from ruvector_tpu_torch.ops.compress import TensorCompress  # noqa: E402
 from ruvector_tpu_torch.ops.distance import pairwise_cosine  # noqa: E402
 from ruvector_tpu_torch.ops.kernels import _lib  # noqa: E402
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (  # noqa: E402
@@ -186,7 +225,35 @@ from ruvector_tpu_torch.ops.kernels.spmm import (  # noqa: E402
     spmm_gather_reference,
     staged_tiles,
 )
+from ruvector_tpu_torch.ops.q15 import (  # noqa: E402
+    f32_to_q15,
+    q15_add,
+    q15_dot,
+    q15_lerp,
+    q15_matmul,
+    q15_mul,
+    q15_to_f32,
+)
+from ruvector_tpu_torch.ops.quantization import (  # noqa: E402
+    BinaryQuantized,
+    PQCodebook,
+    ScalarQuantized,
+    binary_quantize,
+    binary_similarity,
+    hamming_distance,
+    int4_dequantize,
+    int4_quantize,
+    pq_decode,
+    pq_distance,
+    pq_encode,
+    pq_train,
+    scalar_dequantize,
+    scalar_distance,
+    scalar_quantize,
+    squared_distances,
+)
 from ruvector_tpu_torch.ops.segment import (  # noqa: E402
+    masked_softmax,
     normalized_weights,
     spmm_csr,
     spmm_padded,
@@ -334,6 +401,17 @@ K8_PARITY = ((1024, 256, 128, False), (1024, 512, 128, True), (1000, 300, 64, Tr
 # batch of nodes
 GNN_FANOUTS, GNN_ROWS, GNN_LG_S, GNN_SHEAF_S = (10, 10), 8192, 4096, 8192
 GNN_TRAIN_BATCH, GNN_TRAIN_STEPS = 4096, 3
+# the min-cut gate over the features' consecutive sequences: length, eps,
+# the sequences held against the host Dinic, the largest lam tried
+MC_SEQ, MC_EPS, MC_HOST, MC_LAM_MAX = 256, 0.01, 8, 1024.0
+# vector quantization on the re-rank's corpus: queries; PQ (training rows,
+# subvectors, centroids, iterations, the rows of the card-vs-CPU codebook
+# check); Q15 matmul [M, K] x [K, M]; the temporal stores' chunks of
+# QZ_CHUNK x d, the hot chunks and their read rounds
+QZ_QUERIES = 1024
+QZ_PQ_TRAIN, QZ_PQ_SUB, QZ_PQ_K, QZ_PQ_ITERS, QZ_PQ_CHECK = 65_536, 8, 256, 10, 4096
+QZ_Q15_M, QZ_Q15_K = 4096, 128
+QZ_CHUNKS, QZ_CHUNK, QZ_HOT, QZ_HAMMER = 1024, 128, 64, 64
 
 
 def say(phase: str, **fields) -> None:
@@ -1569,6 +1647,246 @@ def phase_gnn_family(feats: torch.Tensor, graph: NeighborGraph, d: int, heads: i
         seconds=round(time.perf_counter() - t_phase, 1))
 
 
+def equal_cpu(name: str, got, want) -> None:
+    """An integer, mask or word output of the card equal to the CPU's, bit
+    for bit."""
+    got, want = got.cpu(), want.cpu()
+    same = got.shape == want.shape and bool(torch.equal(got, want))
+    differ = int((got != want).sum()) if got.shape == want.shape else -1
+    say("equal", name=f"{name}: card vs CPU", shape=list(got.shape), differ=differ, ok=same)
+    if not same:
+        raise AssertionError(f"{name}: the card's values differ from the CPU's")
+
+
+def control_far(name: str, got: torch.Tensor, want: torch.Tensor, check) -> None:
+    """A planted control: first that it moves the output well past the
+    limit (10x the f32 max), then that the check rejects it."""
+    err = float((got.float().cpu() - want.float().cpu()).abs().max())
+    far = err > 10 * TOL[torch.float32][0]
+    say("control_size", name=name, max_abs_err=err, limit=TOL[torch.float32][0], far=far)
+    if not far:
+        raise AssertionError(f"control {name} moves the output by only {err}")
+    expect_rejected(name, check)
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def phase_attention_rest(feats: torch.Tensor, graph: NeighborGraph, d: int) -> None:
+    """The rest of the attention family on the 100k-node graph
+    (`[attention_rest]`), seed-0 weights on the card, no kernel: the
+    per-node mechanisms dual_space, mixed_curvature, lorentz_cascade,
+    coherence_gated and moe (3 experts, top-2, 64 features) through the
+    registry (q = features, k = v = the 16 neighbors'); the ten SDK
+    presets, each in its own form, on unit rows; the min-cut gate over
+    the 390 consecutive 256-node sequences (q = k = v), at lam 0.5 and at
+    the first lam of 1, 2, 4, 8, ... at which gates cut, its masks against
+    the host Dinic on the first 8 sequences' logits; the CGT over the first
+    8192 nodes. Each output against the same function on the CPU (f32
+    limits on the first GNN_ROWS rows; masks, lanes and layer counts
+    equal); dual-space attention without its hyperbolic branch must be
+    rejected. Times: medians of 10 calls (CUDA events)."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    n = graph.num_nodes
+    fields = {}
+    nbr = feats[graph.nbr_idx.long()]
+    rows = slice(0, GNN_ROWS)
+    q_c, nbr_c, mask_c = feats[rows].cpu(), nbr[rows].cpu(), graph.nbr_mask[rows].cpu()
+
+    mechanisms = {
+        "dual_space": DualSpaceConfig(dim=d),
+        "mixed_curvature": MixedCurvatureConfig(dim=d),
+        "lorentz_cascade": None,
+        "coherence_gated": TopologyConfig(dim=d),
+        "moe": MoEAttentionConfig(dim=d, num_experts=3, top_k=2, num_features=64),
+    }
+    for name, cfg in mechanisms.items():
+        mech = get_attention(name)
+        params = mech.init(0, cfg, DEV) if mech.init is not None else None
+        out = mech.apply(params, cfg, feats, nbr, nbr, graph.nbr_mask)
+        if out.shape != (n, d) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: output not finite or of the wrong shape")
+        want = mech.apply(_tree_cpu(params), cfg, q_c, nbr_c, nbr_c, mask_c)
+        agree_cpu(f"{name} attention, first {GNN_ROWS} rows", out[rows], want)
+        fields[f"{name}_ms"] = time_ms(
+            lambda: mech.apply(params, cfg, feats, nbr, nbr, graph.nbr_mask), iters=10)
+        if name == "lorentz_cascade":
+            # a curvature of 2 in place of 1 only rescales distances that are
+            # near-equal on these neighbors: recorded, too small a control
+            c2 = lorentz_cascade_attention(feats[rows], nbr[rows], nbr[rows],
+                                           graph.nbr_mask[rows], curvatures=(0.5, 2.0, 2.0))
+            fields["lorentz_curvature_2_move"] = float((c2.cpu() - want).abs().max())
+        if name == "dual_space":
+            # control: the hyperbolic branch dropped (all weight on the
+            # Euclidean scores)
+            euc_only = dataclasses.replace(cfg, hyperbolic_weight=0.0)
+            bad = mech.apply(params, euc_only, feats[rows], nbr[rows], nbr[rows],
+                             graph.nbr_mask[rows])
+            control_far("dual_space without its hyperbolic branch", bad, want,
+                        lambda: agree_cpu("dual_space, Euclidean only (control)", bad, want))
+    tcfg = mechanisms["coherence_gated"]
+    _, lam2 = coherence_gated_attention(feats, nbr, nbr, graph.nbr_mask, tcfg)
+    _, lam2_c = coherence_gated_attention(q_c, nbr_c, nbr_c, mask_c, tcfg)
+    agree_cpu(f"coherence_gated lambda_2, first {GNN_ROWS} rows", lam2[rows], lam2_c)
+    equal_cpu("coherence_gated fragmented rows", lam2[rows] < tcfg.coherence_threshold,
+              lam2_c < tcfg.coherence_threshold)
+    fields["fragmented_share"] = float((lam2 < tcfg.coherence_threshold).float().mean())
+    # every neighborhood here lies in one cluster: lambda_2 well above the
+    # threshold, the fragmented branch is the CPU tests' to check
+    fields["lambda2_min_median"] = [float(lam2.min()), float(lam2.median())]
+    fields["lambda2_within_1e-5_of_threshold"] = int(
+        ((lam2 - tcfg.coherence_threshold).abs() < 1e-5).sum())
+    del nbr
+
+    # the ten SDK presets at dim d, each in its own form, on unit rows
+    # (FAVOR+, the performer's kernel, underflows to 0 at ||x||^2 ~ 136)
+    unit = _unit_rows(feats)
+    unbr = unit[graph.nbr_idx.long()]
+    x_lg = unit[:GNN_LG_S]
+    preset_ms = {}
+    for name in PRESETS:
+        built = preset(name, d, device=DEV)
+        built_c = dataclasses.replace(built, params=_tree_cpu(built.params))
+        if name == "longformer":
+            call = lambda b=built: b(x_lg, x_lg, x_lg, local_window=64, num_global=4)  # noqa: E731
+            want = built_c(x_lg.cpu(), x_lg.cpu(), x_lg.cpu(), local_window=64, num_global=4)
+            got = call()
+        else:
+            call = lambda b=built: b(unit, unbr, unbr, graph.nbr_mask)  # noqa: E731
+            got = call()[rows]
+            want = built_c(unit[rows].cpu(), unbr[rows].cpu(), unbr[rows].cpu(), mask_c)
+        agree_cpu(f"preset {name}", got, want)
+        preset_ms[name] = time_ms(call, iters=10)
+    fields["preset_ms"] = json.dumps(preset_ms, separators=(",", ":"))
+    del unbr
+
+    fields.update(_mincut_rest(feats, d))
+    fields.update(_cgt_rest(feats, unit, d))
+
+    if kernels.launch_counts() != before:
+        raise AssertionError("the attention family launched a kernel")
+    say("attention_rest", nodes=n, d=d, **fields, kernel_launches=0,
+        seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def _mincut_rest(feats: torch.Tensor, d: int) -> dict:
+    """attn_mincut_device_batched over the features' consecutive
+    MC_SEQ-node sequences (q = k = v). The masks of the first MC_HOST
+    sequences against the host Dinic (dynamic_min_cut, attn_mincut's gate)
+    and the CPU push-relabel on the same logits, bit for bit; the card's
+    output against the CPU's masked softmax of those logits."""
+    k = feats.shape[0] // MC_SEQ
+    xs = feats[:k * MC_SEQ].reshape(k, MC_SEQ, d)
+    # attn_mincut_device_batched's own product, so the same logits
+    logits = torch.matmul(xs, xs.transpose(1, 2)) / (d ** 0.5)
+    pos = logits > MC_EPS
+    lg_c = logits[:MC_HOST].cpu()
+    fields, cuts = {"sequences": k, "seq_len": MC_SEQ}, {}
+
+    def gate(lam):
+        out, keep, cost = attn_mincut_device_batched(xs, xs, xs, lam, MC_EPS)
+        cuts[lam] = int((keep != pos).any(dim=(1, 2)).sum())
+        return out, keep, cost
+
+    def against_host(lam, out, keep, cost):
+        host_costs = []
+        for i in range(MC_HOST):
+            host = dynamic_min_cut(lg_c[i].numpy(), MC_SEQ, lam, 2, MC_EPS)
+            equal_cpu(f"min-cut lam {lam} sequence {i}: card gate vs host Dinic",
+                      keep[i].reshape(-1), torch.from_numpy(host.keep_mask))
+            c = float(cost[i])
+            if abs(c - host.cut_cost) > 2e-3 * abs(host.cut_cost):
+                raise AssertionError(f"min-cut lam {lam} sequence {i}: cut cost {c} "
+                                     f"against the host's {host.cut_cost}")
+            host_costs.append(round(host.cut_cost, 4))
+        keep_c = mincut_gate_stats(lg_c, lam, MC_EPS)[0]
+        equal_cpu(f"min-cut lam {lam}, first {MC_HOST}: card vs CPU push-relabel",
+                  keep[:MC_HOST], keep_c)
+        agree_cpu(f"min-cut gated attention lam {lam}, first {MC_HOST} sequences",
+                  out[:MC_HOST], masked_softmax(lg_c, keep_c.float(), dim=-1) @ xs[:MC_HOST].cpu())
+        fields[f"host_cut_costs_lam_{lam}"] = host_costs
+
+    lam = 0.5
+    against_host(lam, *gate(lam))
+    if cuts[lam] == 0:
+        # no gate cuts at 0.5: the smallest lam of 1, 2, 4, ... at which some do
+        lam = 1.0
+        res = gate(lam)
+        while cuts[lam] == 0:
+            if lam >= MC_LAM_MAX:
+                raise AssertionError(f"no gate cuts at lam up to {lam}: {cuts}")
+            lam *= 2
+            res = gate(lam)
+        against_host(lam, *res)
+    lam_cut = lam
+    rounds = mincut_gate_stats(logits, lam_cut, MC_EPS)[4]
+    fields["cuts_applied"] = json.dumps({str(lam): c for lam, c in cuts.items()},
+                                        separators=(",", ":"))
+    fields["lam_cut"] = lam_cut
+    fields["rounds_at_lam_cut"] = {"max": int(rounds.max()), "median": float(rounds.float().median())}
+    for lam in (0.5, lam_cut):
+        fields[f"mincut_ms_lam_{lam}"] = time_ms(
+            lambda: attn_mincut_device_batched(xs, xs, xs, lam, MC_EPS), iters=10, warmup=1)
+    return fields
+
+
+def _cgt_rest(feats: torch.Tensor, unit: torch.Tensor, d: int) -> dict:
+    """cgt_forward over the first GNN_SHEAF_S nodes: on the features with
+    the default router, sparse and early-exit configs; and on unit rows
+    with every token in the standard lane (the residual-sparse mask, the
+    early exit, 4 layers at most) and in the deep lane (full attention and
+    the FFN, 3 layers at most), whose CPU references cost about a second a
+    layer. Against the CPU: outputs, layers_used and lanes. The
+    residual-sparse mask and the router on the same energies, bit for bit."""
+    fields = {}
+    cfg_default = CgtConfig(dim=d)
+    params = cgt_init(0, cfg_default, DEV)
+    params_c = _tree_cpu(params)
+    runs = {
+        "default": (feats[:GNN_SHEAF_S], cfg_default, EarlyExitConfig()),
+        "standard_lane": (unit[:GNN_SHEAF_S], dataclasses.replace(
+            cfg_default, router=TokenRouterConfig(1e-6, 1e6, 2e6)),
+            EarlyExitConfig(max_layers=4)),
+        "deep_lane": (unit[:GNN_SHEAF_S], dataclasses.replace(
+            cfg_default, router=TokenRouterConfig(1e-9, 2e-9, 1e9)),
+            EarlyExitConfig(max_layers=3)),
+    }
+    for name, (x, cfg, ecfg) in runs.items():
+        xf, n_layers, ema, conv, e0, lanes = cgt_forward(params, cfg, x, ecfg)
+        xf_c, n_c, _, conv_c, _, lanes_c = cgt_forward(params_c, cfg, x.cpu(), ecfg)
+        if (n_layers, conv) != (n_c, conv_c):
+            raise AssertionError(f"CGT {name}: layers_used {n_layers} / converged {conv} "
+                                 f"against the CPU's {n_c} / {conv_c}")
+        agree_cpu(f"CGT {name}, S={GNN_SHEAF_S}", xf, xf_c)
+        equal_cpu(f"CGT {name} lanes", lanes, lanes_c)
+        stats = lane_statistics(lanes)
+        reason = early_exit_result(n_layers, ema, conv, ecfg, e0)[0].exit_reason.name
+        fields[f"cgt_{name}"] = json.dumps(
+            {"layers_used": n_layers, "exit": reason,
+             "lanes": [stats.reflex_count, stats.standard_count, stats.deep_count,
+                       stats.escalate_count],
+             "ms": time_ms(lambda: cgt_forward(params, cfg, x, ecfg), iters=10, warmup=1)},
+            separators=(",", ":"))
+    # the mask and the router on identical energies (the unit rows')
+    e = edge_energies(params["sheaf"], unit[:GNN_SHEAF_S])
+    e_c = e.cpu()
+    scfg = SparseResidualConfig(residual_threshold=2.2)
+    mask = residual_sparse_mask(e, scfg)
+    equal_cpu(f"residual-sparse mask S={GNN_SHEAF_S}", mask, residual_sparse_mask(e_c, scfg))
+    token = e.sum(-1)
+    qs = torch.sort(token / GNN_SHEAF_S).values
+    # thresholds midway between neighbouring energies at the quartiles
+    cut = [float((qs[i - 1] + qs[i]) / 2) for i in (len(qs) // 4, len(qs) // 2, 3 * len(qs) // 4)]
+    rcfg = TokenRouterConfig(*cut)
+    lanes = route_by_energy(token, rcfg, GNN_SHEAF_S)
+    equal_cpu("router lanes at the quartiles", lanes, route_by_energy(token.cpu(), rcfg, GNN_SHEAF_S))
+    fields["sparse_mask_sparsity"] = sparsity_statistics(mask).sparsity
+    fields["quartile_router_lanes"] = dataclasses.astuple(lane_statistics(lanes))
+    return fields
+
+
 def phase_contrastive(params, cfg, feats, graph) -> None:
     """The RuvectorLayer's contrastive train step (TrainConfig defaults:
     batch 256, 64 negatives, tau 0.07) with Adam (lr 1e-3) on the 100k-node
@@ -1875,6 +2193,291 @@ def phase_rerank(d: int) -> dict:
     return dict(q=q, pool=pool, launches=counts["flash_neighbor_attention"])
 
 
+def _pq_tie_share(name: str, codes, codes_c, x_c, cb_c) -> float:
+    """PQ codes of the card against the CPU's: they may differ only where
+    the two centroids' distances tie within 1e-5 relative, on at most
+    1e-4 of the codes. Returns the share that differs."""
+    diff = (codes.cpu() != codes_c)
+    share = float(diff.float().mean())
+    if bool(diff.any()):
+        n, s = codes_c.shape
+        sub = x_c.reshape(n, s, -1)
+        r, c = torch.nonzero(diff, as_tuple=True)
+        books = cb_c.codebooks[c]
+        d_card = ((sub[r, c] - books[torch.arange(len(r)), codes.cpu()[r, c].long()]) ** 2).sum(-1)
+        d_cpu = ((sub[r, c] - books[torch.arange(len(r)), codes_c[r, c].long()]) ** 2).sum(-1)
+        ties = bool(((d_card - d_cpu).abs() <= 1e-5 * d_cpu.abs()).all())
+    else:
+        ties = True
+    ok = ties and share <= 1e-4
+    say("equal", name=f"{name}: card vs CPU", differ_share=share, only_ties=ties, ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: codes differ beyond ties")
+    return share
+
+
+def phase_quantization(d: int) -> dict:
+    """Vector quantization on `[rerank]`'s corpus (`[quantization]`):
+    RR_NODES x d f32 (bench.py's data, seed 0) and QZ_QUERIES queries
+    (corpus rows plus RR_NOISE N(0, 1)). Scalar int8 (quantize,
+    dequantize, the asymmetric distance [queries, corpus]), int4, PQ
+    (pq_train on the first QZ_PQ_TRAIN rows, 8 x 256 x 10 iterations, the
+    encoding of the whole corpus, ADC distances), binary (words, Hamming
+    distances, similarity), TensorCompress at every level, every Q15 op
+    (the matmul at 4096 x 128 x 4096) and both temporal stores (1024
+    chunks of 128 x 128 through every tier). Against the CPU: codes,
+    words, Hamming distances, codebooks, Q15 values and stored words bit
+    for bit; float outputs within the f32 limits of their scale (the
+    distances on the first GNN_ROWS corpus rows); a scalar distance with
+    its offset term dropped must be rejected. Times: medians of 10 calls
+    (CUDA events); pq_train and the pq8 level one call (host clock)."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    corpus_np = bench_features(RR_NODES, d)
+    rng = np.random.default_rng(7)
+    q_np = (corpus_np[rng.integers(0, RR_NODES, size=QZ_QUERIES)]
+            + RR_NOISE * rng.standard_normal((QZ_QUERIES, d))).astype(np.float32)
+    corpus, queries = torch.from_numpy(corpus_np).to(DEV), torch.from_numpy(q_np).to(DEV)
+    corpus_c, queries_c = torch.from_numpy(corpus_np), torch.from_numpy(q_np)
+    fields = {"corpus": RR_NODES, "d": d, "queries": QZ_QUERIES,
+              "gen_s": round(time.perf_counter() - t0, 3)}
+    ms = {}
+    sub = slice(0, GNN_ROWS)
+
+    def scaled(name, got, want):
+        agree_scaled(f"{name}: card vs CPU", got.cpu(), want, torch.float32)
+
+    # scalar int8
+    sq, sq_c = scalar_quantize(corpus), scalar_quantize(corpus_c)
+    for f in ("codes", "scale", "offset"):
+        equal_cpu(f"scalar int8 {f}", getattr(sq, f), getattr(sq_c, f))
+    scaled("scalar dequantize", scalar_dequantize(sq), scalar_dequantize(sq_c))
+    sq_sub_c = ScalarQuantized(sq_c.codes[sub], sq_c.scale[sub], sq_c.offset[sub])
+    dist = scalar_distance(queries, sq)
+    want = scalar_distance(queries_c, sq_sub_c)
+    scaled(f"scalar_distance, first {GNN_ROWS} rows", dist[:, sub], want)
+    no_offset = ScalarQuantized(sq.codes[sub], sq.scale[sub], torch.zeros_like(sq.scale[sub]))
+    bad = scalar_distance(queries, no_offset)
+    control_far("scalar_distance without its offset term", bad, want, lambda: scaled(
+        "scalar_distance without the offset (control)", bad, want))
+    del dist, bad
+    ms["scalar_quantize"] = time_ms(lambda: scalar_quantize(corpus), iters=10)
+    ms["scalar_dequantize"] = time_ms(lambda: scalar_dequantize(sq), iters=10)
+    ms["scalar_distance"] = time_ms(lambda: scalar_distance(queries, sq), iters=10)
+
+    # int4
+    q4, q4_c = int4_quantize(corpus), int4_quantize(corpus_c)
+    for f in ("packed", "scale", "offset"):
+        equal_cpu(f"int4 {f}", getattr(q4, f), getattr(q4_c, f))
+    scaled("int4 dequantize", int4_dequantize(q4), int4_dequantize(q4_c))
+    ms["int4_quantize"] = time_ms(lambda: int4_quantize(corpus), iters=10)
+    ms["int4_dequantize"] = time_ms(lambda: int4_dequantize(q4), iters=10)
+    del q4, q4_c
+
+    # PQ: codebooks on the card and the CPU equal on a small slice; at full
+    # width the assignment's squared distances equal numpy's, bit for bit
+    t0 = time.perf_counter()
+    cb = pq_train(corpus_np[:QZ_PQ_TRAIN], QZ_PQ_SUB, QZ_PQ_K, QZ_PQ_ITERS, device=DEV)
+    torch.cuda.synchronize()
+    fields["pq_train_s"] = round(time.perf_counter() - t0, 3)
+    small = corpus_np[:QZ_PQ_CHECK]
+    equal_cpu(f"pq_train codebooks on {QZ_PQ_CHECK} rows",
+              pq_train(small, QZ_PQ_SUB, QZ_PQ_K, QZ_PQ_ITERS, device=DEV).codebooks,
+              pq_train(small, QZ_PQ_SUB, QZ_PQ_K, QZ_PQ_ITERS, device="cpu").codebooks)
+    ds = d // QZ_PQ_SUB
+    sub0 = corpus_np[:QZ_PQ_TRAIN, :ds]
+    cent0 = cb.codebooks[0].cpu().numpy()
+    equal_cpu(f"pq_train assignment distances, {QZ_PQ_TRAIN} x {QZ_PQ_K}",
+              squared_distances(torch.from_numpy(sub0).to(DEV)[:, None, :],
+                                cb.codebooks[0][None]),
+              torch.from_numpy(((sub0[:, None, :] - cent0[None]) ** 2).sum(-1)))
+    cb_c = PQCodebook(cb.codebooks.cpu(), cb.dim)
+    codes = pq_encode(cb, corpus)
+    codes_c = pq_encode(cb_c, corpus_c[sub])
+    fields["pq_code_tie_share"] = _pq_tie_share(f"pq_encode, first {GNN_ROWS} rows",
+                                                codes[sub], codes_c, corpus_c[sub], cb_c)
+    scaled("pq_decode", pq_decode(cb, codes[sub]), pq_decode(cb_c, codes[sub].cpu()))
+    scaled(f"pq_distance, first {GNN_ROWS} rows", pq_distance(cb, queries, codes)[:, sub],
+           pq_distance(cb_c, queries_c, codes[sub].cpu()))
+    ms["pq_encode"] = time_ms(lambda: pq_encode(cb, corpus), iters=10)
+    ms["pq_decode"] = time_ms(lambda: pq_decode(cb, codes), iters=10)
+    ms["pq_distance"] = time_ms(lambda: pq_distance(cb, queries, codes), iters=10)
+    del codes
+
+    # binary
+    bq, bq_c = binary_quantize(corpus), binary_quantize(corpus_c)
+    equal_cpu("binary words", bq.bits, bq_c.bits)
+    bqq, bqq_c = binary_quantize(queries), binary_quantize(queries_c)
+    sub_c = BinaryQuantized(bq_c.bits[sub], d)
+    ham = hamming_distance(bqq, bq)
+    equal_cpu(f"hamming_distance, first {GNN_ROWS} rows", ham[:, sub],
+              hamming_distance(bqq_c, sub_c))
+    del ham
+    scaled(f"binary_similarity, first {GNN_ROWS} rows", binary_similarity(bqq, bq)[:, sub],
+           binary_similarity(bqq_c, sub_c))
+    ms["binary_quantize"] = time_ms(lambda: binary_quantize(corpus), iters=10)
+    ms["hamming_distance"] = time_ms(lambda: hamming_distance(bqq, bq), iters=10)
+    ms["binary_similarity"] = time_ms(lambda: binary_similarity(bqq, bq), iters=10)
+    del bq, bq_c
+
+    # TensorCompress at every level: the whole corpus on the card; the card
+    # against the CPU on the first QZ_PQ_CHECK rows
+    tc = TensorCompress(device=DEV)
+    compress = {}
+    for level in ("none", "half", "pq8", "pq4", "binary"):
+        small_t = tc.compress_level(corpus[:QZ_PQ_CHECK], level)
+        small_c = tc.compress_level(corpus_c[:QZ_PQ_CHECK], level)
+        scaled(f"TensorCompress {level} round trip, {QZ_PQ_CHECK} rows",
+               tc.decompress(small_t), tc.decompress(small_c))
+        payload = {"none": lambda t: [t.payload], "half": lambda t: [t.payload],
+                   "pq8": lambda t: [t.payload["codebook"].codebooks, t.payload["codes"]],
+                   "pq4": lambda t: [t.payload["int4"].packed, t.payload["outlier_idx"],
+                                     t.payload["outlier_val"]],
+                   "binary": lambda t: [t.payload.bits]}[level]
+        for i, (a, b) in enumerate(zip(payload(small_t), payload(small_c))):
+            equal_cpu(f"TensorCompress {level} payload {i}", a, b)
+        t0 = time.perf_counter()
+        ct = tc.compress_level(corpus, level)
+        torch.cuda.synchronize()
+        once_s = time.perf_counter() - t0
+        dec = tc.decompress(ct)
+        rmse = float(torch.sqrt(torch.mean((dec - corpus) ** 2)))
+        entry = {"bytes_per_vector": ct.bytes_per_vector,
+                 "ratio": d * 4 / ct.bytes_per_vector, "rmse": rmse,
+                 "decompress_ms": time_ms(lambda: tc.decompress(ct), iters=10)}
+        if level == "pq8":
+            entry["compress_s"] = round(once_s, 3)
+        else:
+            entry["compress_ms"] = time_ms(lambda: tc.compress_level(corpus, level), iters=10)
+        compress[level] = entry
+        del ct, dec
+    fields["compress"] = json.dumps(compress, separators=(",", ":"))
+
+    fields["q15_dot_row0"] = _q15_rest(ms)
+    fields.update(_stores_rest(d))
+    fields["ms"] = json.dumps(ms, separators=(",", ":"))
+    if kernels.launch_counts() != before:
+        raise AssertionError("the quantization ops launched a kernel")
+    say("quantization", **fields, kernel_launches=0,
+        seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def _q15_rest(ms: dict) -> int:
+    """Every Q15 op on the card against the CPU, bit for bit: the
+    elementwise ops and the dot over [QZ_Q15_M, QZ_Q15_K], the matmul
+    [QZ_Q15_M, QZ_Q15_K] x [QZ_Q15_K, QZ_Q15_M], on random int16 values
+    with the extremes planted (whose int32 sums wrap)."""
+    g = torch.Generator().manual_seed(15)
+    a_c, b_c, t_c = (torch.randint(-32768, 32768, (QZ_Q15_M, QZ_Q15_K), generator=g,
+                                   dtype=torch.int16) for _ in range(3))
+    a_c[0], b_c[0] = -32768, -32768
+    x_c = torch.rand((QZ_Q15_M, QZ_Q15_K), generator=g) * 2.5 - 1.25
+    a, b, t, x = (v.to(DEV) for v in (a_c, b_c, t_c, x_c))
+    bt, bt_c = b.T.contiguous(), b_c.T.contiguous()
+    ops = {
+        "f32_to_q15": (lambda: f32_to_q15(x), lambda: f32_to_q15(x_c)),
+        "q15_to_f32": (lambda: q15_to_f32(a), lambda: q15_to_f32(a_c)),
+        "q15_add": (lambda: q15_add(a, b), lambda: q15_add(a_c, b_c)),
+        "q15_mul": (lambda: q15_mul(a, b), lambda: q15_mul(a_c, b_c)),
+        "q15_lerp": (lambda: q15_lerp(a, b, t), lambda: q15_lerp(a_c, b_c, t_c)),
+        "q15_dot": (lambda: q15_dot(a, b), lambda: q15_dot(a_c, b_c)),
+        "q15_matmul": (lambda: q15_matmul(a, bt), lambda: q15_matmul(a_c, bt_c)),
+    }
+    for name, (card, cpu) in ops.items():
+        equal_cpu(f"{name} [{QZ_Q15_M}, {QZ_Q15_K}]", card(), cpu())
+        ms[name] = time_ms(card, iters=10)
+    return int(q15_dot(a, b)[0])     # all -32768: the int32 sum wraps
+
+
+def _stores_rest(d: int) -> dict:
+    """Both temporal stores, QZ_CHUNKS chunks of QZ_CHUNK x d, the same
+    sequence on the card and the CPU. temporal_tensor: writes (8 bits),
+    a migration on the write clock (3, 7 and 8 bits), reads, QZ_HAMMER
+    read rounds over the first QZ_HOT chunks, a migration (they return to
+    8 bits, the rest go to 3). temporal_tiers on a fake clock: hot, then
+    warm after 3 s, cold after 60 more, and 10 s later the first QZ_HOT
+    chunks back to hot after 5 reads each.
+    Stored words and scales equal, reads within the f32 limits."""
+    g = torch.Generator().manual_seed(16)
+    chunks = torch.randn((QZ_CHUNKS, QZ_CHUNK, d), generator=g)
+    fields = {}
+
+    def tensor_store(dev):
+        st = temporal_tensor.TemporalTensorStore(device=dev)
+        src = chunks.to(dev)
+        tiers, reads = [], []
+        for i in range(QZ_CHUNKS):
+            st.write(i, src[i])
+        tiers.append(st.migrate())
+        reads.append(torch.stack([st.read(i) for i in range(QZ_CHUNKS)]))
+        for _ in range(QZ_HAMMER):
+            for i in range(QZ_HOT):
+                st.read(i)
+        tiers.append(st.migrate())
+        reads.append(torch.stack([st.read(i) for i in range(QZ_CHUNKS)]))
+        return st, tiers, reads
+
+    def tier_store(dev):
+        clock = [0.0]
+        st = temporal_tiers.TemporalTensorStore(
+            d, temporal_tiers.TierPolicyConfig(decay_per_second=1.0, demote_interval_s=0.0),
+            clock=lambda: clock[0], device=dev)
+        reads, tiers = [], []
+        src = chunks.to(dev)
+        for i in range(QZ_CHUNKS):
+            st.write(i, src[i])
+        for advance in (0.0, 3.0, 60.0):
+            clock[0] += advance
+            st.tick(force=True)
+            tiers.append(st.stats())
+            reads.append(torch.stack([st.read(i) for i in range(QZ_CHUNKS)]))
+        clock[0] += 10.0
+        for _ in range(5):
+            for i in range(QZ_HOT):
+                st.read(i)
+        st.tick(force=True)
+        tiers.append(st.stats())
+        return st, tiers, reads
+
+    def tier_words(st):
+        """Every chunk's stored codes (int8 hot, uint8 nibbles otherwise)
+        and scales, flattened."""
+        data = [st._chunks[i]["data"] for i in range(QZ_CHUNKS)]
+        return (torch.cat([(q.codes if isinstance(q, ScalarQuantized) else q.packed)
+                           .reshape(-1).to(torch.int16) for q in data]),
+                torch.cat([q.scale for q in data]))
+
+    for name, run in (("temporal_tensor", tensor_store), ("temporal_tiers", tier_store)):
+        (st, tiers, reads), t_ms = _synced_ms(lambda: run(DEV))
+        st_c, tiers_c, reads_c = run("cpu")
+        if tiers != tiers_c:
+            raise AssertionError(f"{name}: tiers {tiers} against the CPU's {tiers_c}")
+        for i, (r, r_c) in enumerate(zip(reads, reads_c)):
+            agree_scaled(f"{name} reads, pass {i}: card vs CPU", r.cpu(), r_c, torch.float32)
+        if name == "temporal_tensor":
+            words = torch.cat([st._slots[i].packed.reshape(-1) for i in range(QZ_CHUNKS)])
+            words_c = torch.cat([st_c._slots[i].packed.reshape(-1) for i in range(QZ_CHUNKS)])
+            equal_cpu(f"{name} stored words", words, words_c)
+            used = sum(s.packed.nbytes + s.scales.nbytes for s in st._slots.values())
+            bits = [st.tier_of(i) for i in range(QZ_CHUNKS)]
+            fields[name] = {"tiers_after_migrations": [
+                {str(b): c for b, c in sorted(collections.Counter(m.values()).items())}
+                for m in tiers], "bits_now": dict(collections.Counter(bits)),
+                "MB": used / 1e6, "ratio": chunks.numel() * 4 / used,
+                "sequence_ms": round(t_ms, 1)}
+        else:
+            for part, a_, b_ in zip(("codes", "scales"), tier_words(st), tier_words(st_c)):
+                equal_cpu(f"{name} stored {part}", a_, b_)
+            used = (tiers[-1]["hot"] * QZ_CHUNK * d
+                    + (QZ_CHUNKS - tiers[-1]["hot"]) * QZ_CHUNK * ((d + 1) // 2))
+            fields[name] = {"tiers": [{k: v for k, v in t.items() if k != "compression_ratio"}
+                                      for t in tiers], "MB": used / 1e6,
+                            "ratio": tiers[-1]["compression_ratio"],
+                            "sequence_ms": round(t_ms, 1)}
+    return {k: json.dumps(v, separators=(",", ":")) for k, v in fields.items()}
+
+
 def _edges_per_s(edges: int, ms: float) -> float:
     return edges / (ms * 1e-3)
 
@@ -2090,6 +2693,7 @@ def main() -> int:
         raise AssertionError("RuvectorNet output is not finite or has the wrong shape")
     say("ruvector_net", layers=2, nodes=N_NODES, d=d, heads=heads, finite=True)
     phase_gnn_family(feats, graph, d, heads)
+    phase_attention_rest(feats, graph, d)
 
     # --- config 5: the gated graph transformer's serving path ---------------
     with torch.no_grad():
@@ -2111,6 +2715,7 @@ def main() -> int:
     launches["fused_neighbor_mix"] += phase_serve(feats_np, feats, graph, d, heads)
     rr = phase_rerank(d)
     launches["flash_neighbor_attention"] = rr["launches"]
+    phase_quantization(d)
     sp = phase_csr_spmm(d)
     launches["spmm_gather"] = sp["launches"]
 

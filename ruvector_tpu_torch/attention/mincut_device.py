@@ -18,11 +18,15 @@ The gate takes the canonical minimal-source-side cut (s-reachability in
 the residual), applied only when the flow is at most lam times the mean
 positive logit (ruvector-attn-mincut/src/mincut.rs:163-221 semantics).
 This is the semantic anchor of the K7 kernel (ops/kernels/mincut_gate_block).
+`attn_mincut_device` and its batched form wrap the gate in the gated
+attention (JAX :210-225).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ruvector_tpu_torch.ops.segment import masked_softmax
 
 _TINY = 1e-12
 
@@ -179,3 +183,25 @@ def mincut_gate_device(logits: torch.Tensor, lam: float = 0.5, eps: float = 0.01
     batch = logits[None] if single else logits
     keep, cost, _, _, _ = mincut_gate_stats(batch.float(), lam, eps, max_rounds)
     return (keep[0], cost[0]) if single else (keep, cost)
+
+
+def attn_mincut_device(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lam: float = 0.5, eps: float = 0.01):
+    """Min-cut gated attention on the device (gating.rs:70-102): SDDMM
+    logits, the push-relabel gate, the masked softmax and the SpMM, with no
+    host copy of the logits. q, k [S, D], v [S, Dv] ->
+    (out [S, Dv], keep [S, S] bool, cut_cost [])."""
+    out, keep, cut = attn_mincut_device_batched(q[None], k[None], v[None], lam, eps)
+    return out[0], keep[0], cut[0]
+
+
+def attn_mincut_device_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               lam: float = 0.5, eps: float = 0.01):
+    """attn_mincut_device over a leading batch of sequences, one batched
+    gate solve for all of them: q, k [K, S, D], v [K, S, Dv] ->
+    (out [K, S, Dv], keep [K, S, S] bool, cut_cost [K])."""
+    d = q.shape[-1]
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2)) / (d ** 0.5)
+    keep, cut, _, _, _ = mincut_gate_stats(logits, lam, eps)
+    attn = masked_softmax(logits, keep.float(), dim=-1)
+    return torch.matmul(attn, v.float()), keep, cut

@@ -39,6 +39,11 @@ def params_from_numpy(tree: Any, device: str | torch.device | None = None) -> An
     return conv(tree)
 
 
+def to_numpy(x) -> np.ndarray:
+    """A tensor on any device, or an array-like, as a numpy array."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def params_to_numpy(tree: Any) -> Any:
     """Tree of tensors -> numpy pytree (JAX layout). bfloat16 leaves widen
     to float32 (exact), since numpy has no bfloat16 of its own."""

@@ -1,6 +1,9 @@
 """Tensor ops of the port: message passing in the padded and CSR layouts
 (`segment`), the degree-bucketed SpMM (`spmm_bucketed`), distances
-(`distance`) and the hand-written CUDA kernels (`kernels`)."""
+(`distance`), vector quantization (`quantization`), tiered compression
+(`compress`), Q15 fixed point (`q15`), the temporal tiered stores
+(`temporal_tensor`, `temporal_tiers`) and the hand-written CUDA kernels
+(`kernels`)."""
 
 from ruvector_tpu_torch.ops.segment import (
     masked_softmax,

@@ -22,7 +22,12 @@ from ruvector_tpu_torch.attention import (
     edge_featured_init,
     linear_attention_init,
 )
+from ruvector_tpu_torch.attention.cgt import CgtConfig, cgt_init
+from ruvector_tpu_torch.attention.dual_space import DualSpaceConfig, dual_space_init
 from ruvector_tpu_torch.attention.info_bottleneck import IBConfig, ib_init
+from ruvector_tpu_torch.attention.mincut import hysteresis_init
+from ruvector_tpu_torch.attention.moe import MoEAttentionConfig, moe_attention_init
+from ruvector_tpu_torch.attention.sdk import preset
 from ruvector_tpu_torch.attention.local_global import local_global_mask
 from ruvector_tpu_torch.attention.rope import rope_tables
 from ruvector_tpu_torch.attention.sheaf import SheafAttentionConfig, sheaf_init
@@ -45,6 +50,9 @@ from ruvector_tpu_torch.models import (
     ruvector_net_init,
 )
 from ruvector_tpu_torch.nn.ruvector_layer import RuvectorLayerConfig, ruvector_layer_init
+from ruvector_tpu_torch.ops import temporal_tensor, temporal_tiers
+from ruvector_tpu_torch.ops.compress import TensorCompress
+from ruvector_tpu_torch.ops.quantization import pq_train
 from ruvector_tpu_torch.ops.kernels.block_dense_attn import (
     block_dense_attention,
     block_dense_layer_fused,
@@ -76,6 +84,11 @@ names = [m.name for m in pkgutil.walk_packages(ruvector_tpu_torch.__path__, "ruv
 assert "ruvector_tpu_torch.training.train" in names and "ruvector_tpu_torch.ops.distance" in names
 assert "ruvector_tpu_torch.serve.rerank" in names and "ruvector_tpu_torch.ops.kernels.spmm" in names
 assert "ruvector_tpu_torch.models.graphsage" in names and "ruvector_tpu_torch.attention.sheaf" in names
+for new in ("attention.dual_space", "attention.mixed_curvature", "attention.topology",
+            "attention.mincut", "attention.mincut_device", "attention.cgt", "attention.moe",
+            "attention.sdk", "utils.witness", "ops.quantization", "ops.compress", "ops.q15",
+            "ops.temporal_tensor", "ops.temporal_tiers"):
+    assert "ruvector_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -87,13 +100,13 @@ print(len(names), bad)
 def test_imports_no_jax_and_no_jax_package():
     """Whole module names: `ruvector_tpu_torch` starts with `ruvector_tpu`.
     The walk covers every module, the training package, the distance ops,
-    the serving path, the K8/K9 wrappers, the GNN model family and the
-    attention family included."""
+    the serving path, the K8/K9 wrappers, the GNN model family, the whole
+    attention family, the witness log and the quantization ops included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 64
+    assert int(count) >= 78
     assert bad == "[]"
 
 
@@ -127,6 +140,16 @@ _ENTRY_POINTS = {
     "SparseMaskBuilder": lambda: SparseMaskBuilder(8),
     "rope_tables": lambda: rope_tables(8, 4),
     "local_global_mask": lambda: local_global_mask(8, 2, 1),
+    "dual_space_init": lambda: dual_space_init(0, DualSpaceConfig(dim=8)),
+    "moe_attention_init": lambda: moe_attention_init(0, MoEAttentionConfig(dim=8)),
+    "cgt_init": lambda: cgt_init(0, CgtConfig(dim=8)),
+    "hysteresis_init": lambda: hysteresis_init((3,)),
+    "preset": lambda: preset("switch_transformer", 8),
+    "pq_train": lambda: pq_train(np.eye(8, dtype=np.float32), 2, 4, 1),
+    "TensorCompress": lambda: TensorCompress().compress(np.eye(8, dtype=np.float32), 0.9),
+    "quantize_bits": lambda: temporal_tensor.quantize_bits(np.ones(4, np.float32), 8),
+    "TemporalTensorStore": lambda: temporal_tensor.TemporalTensorStore(),
+    "temporal_tiers.TemporalTensorStore": lambda: temporal_tiers.TemporalTensorStore(8),
 }
 
 
@@ -158,6 +181,13 @@ _CPU_INITS = {
     "ib_init": lambda: ib_init(0, IBConfig(dim=8, bottleneck_dim=4), device="cpu"),
     "TrainableAttention": lambda: TrainableAttention(
         "edge_featured", EdgeFeaturedConfig(8, 2, 2), device="cpu").params,
+    "dual_space_init": lambda: dual_space_init(0, DualSpaceConfig(dim=8), device="cpu"),
+    "moe_attention_init": lambda: moe_attention_init(0, MoEAttentionConfig(dim=8),
+                                                     device="cpu"),
+    "cgt_init": lambda: cgt_init(0, CgtConfig(dim=8), device="cpu"),
+    "preset": lambda: preset("switch_transformer", 8, device="cpu").params,
+    "pq_train": lambda: [pq_train(np.eye(8, dtype=np.float32), 2, 4, 1,
+                                  device="cpu").codebooks],
 }
 
 
