@@ -57,6 +57,12 @@ card:
     the padded SpMM, the K9 gather-fused SpMM on the whole graph and the
     CSR SpMM on a regular 99,840-node k=16 graph; the degree-bucketed,
     max-degree padded and CSR SpMM on a 50,000-node power-law graph.
+  * the min-cut-gated transformer (`[transformer]`, no kernel) at
+    benchmarks/spec_at_size.py's width (12 layers x 1024 hidden x 16
+    heads, 152M parameters): early-exit training, greedy and speculative
+    batched decoding, the gate's tier programs on the int8 route, the
+    tiered KV cache through every tier and the subsystems, each against
+    the CPU.
 
 Prints one line per phase, the card's name and power limit, a `kernels`
 JSON line (launches on the main paths, error against the plain version,
@@ -79,6 +85,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -107,6 +114,7 @@ from ruvector_tpu_torch.attention import (  # noqa: E402
     route_by_energy,
 )
 from ruvector_tpu_torch.attention.cgt import early_exit_result, sparsity_statistics  # noqa: E402
+from ruvector_tpu_torch.attention.rope import rope_rotate  # noqa: E402
 from ruvector_tpu_torch.attention.dual_space import DualSpaceConfig  # noqa: E402
 from ruvector_tpu_torch.attention.info_bottleneck import IBConfig  # noqa: E402
 from ruvector_tpu_torch.attention.mincut_device import (  # noqa: E402
@@ -277,7 +285,63 @@ from ruvector_tpu_torch.training import (  # noqa: E402
     make_train_step,
     sample_negatives,
 )
-from ruvector_tpu_torch.training.optimizers import tree_map  # noqa: E402
+from ruvector_tpu_torch.training.optimizers import tree_leaves, tree_map  # noqa: E402
+from ruvector_tpu_torch.transformer import (  # noqa: E402
+    Decoder,
+    GatePacket,
+    GatePolicy,
+    KVCacheConfig,
+    KVCacheState,
+    MincutGatedTransformer,
+    SpecDecodeConfig,
+    SpikePacket,
+    TransformerConfig,
+    init_weights,
+    int8_matmul,
+    kv_cache_append,
+    kv_cache_init,
+    kv_cache_read,
+    make_batched_generate_fn,
+    make_decode_step,
+    make_speculative_generate_fn,
+)
+from ruvector_tpu_torch.transformer import decode as tf_decode  # noqa: E402
+from ruvector_tpu_torch.transformer import model as tf_model  # noqa: E402
+from ruvector_tpu_torch.transformer import spec_decode as tf_spec  # noqa: E402
+from ruvector_tpu_torch.transformer.kv_quantizers import (  # noqa: E402
+    SQuatBasis,
+    kvquant_dequantize_keys,
+    kvquant_quantize_keys,
+    kvquant_quantize_values,
+    squat_dequantize,
+    squat_learn_basis,
+    squat_quantize,
+)
+from ruvector_tpu_torch.transformer.mamba import (  # noqa: E402
+    MambaConfig,
+    mamba_forward_sequence,
+    mamba_init,
+)
+from ruvector_tpu_torch.transformer.mod_routing import ModRoutingConfig  # noqa: E402
+from ruvector_tpu_torch.transformer.quant import int8_sums, quantize_activation_int8  # noqa: E402
+from ruvector_tpu_torch.transformer.sparse_attention import SparsityConfig  # noqa: E402
+from ruvector_tpu_torch.transformer.spectral import (  # noqa: E402
+    SpectralPositionEncoder,
+    laplacian_from_edges,
+    power_iteration,
+    power_iteration_sparse,
+)
+from ruvector_tpu_torch.transformer.spike_attention import (  # noqa: E402
+    SpikeDrivenConfig,
+    encode_rate,
+    spike_driven_attention,
+)
+from ruvector_tpu_torch.transformer.train_spec import (  # noqa: E402
+    early_exit_loss,
+    markov_corpus,
+    seq_logits_at_depths,
+    train_early_exit,
+)
 
 DEV = torch.device("cuda")
 N_NODES = 100_000   # bench.py's headline graph
@@ -412,6 +476,25 @@ QZ_QUERIES = 1024
 QZ_PQ_TRAIN, QZ_PQ_SUB, QZ_PQ_K, QZ_PQ_ITERS, QZ_PQ_CHECK = 65_536, 8, 256, 10, 4096
 QZ_Q15_M, QZ_Q15_K = 4096, 128
 QZ_CHUNKS, QZ_CHUNK, QZ_HOT, QZ_HAMMER = 1024, 128, 64, 64
+# the min-cut-gated transformer at benchmarks/spec_at_size.py:59-70's width
+# (152,205,824 parameters, nothing cut): its config, the draft depth,
+# gamma, the batch of prompts, prompt length and new tokens, the training
+# run, the hot-only serving cache, the tier programs' prompt, how far past
+# hot + warm + archive the tiered cache decodes (its archive ring wraps),
+# Mamba's steps, and the int8 route's limit against the CPU
+# (test_int8_matmul_accuracy's bound, tests/test_transformer.py:139-147)
+TF_CFG = dict(seq_len_max=512, hidden=1024, heads=16, layers=12, vocab=512, logits=512,
+              layers_degraded=2, seq_len_degraded=64, seq_len_safe=32)
+TF_DRAFT, TF_GAMMA, TF_BATCH, TF_PROMPT, TF_NEW = 2, 6, 4, 9, 128
+TF_TRAIN = dict(steps=250, batch=16, seq_len=48, lr=1e-3, seed=0)
+TF_HOT, TF_TIER_TOKENS, TF_CACHE_EXTRA, TF_MAMBA_STEPS = 256, 512, 16, 512
+TF_INT8_TOL = 5e-2
+# the f32 route's logits against the CPU's, relative to their scale: ten
+# times inside the f32 limits (1e-4, 1e-5). The trained model's logits
+# read 5.2e-7 max and 4.4e-8 mean on an H100 at 700 W (PERF.md section 6); the
+# exact-erf GELU moves them by 1.75e-4, under twice the f32 limit, and
+# this limit rejects it with room to spare
+TF_F32_TOL = (1e-5, 1e-6)
 
 
 def say(phase: str, **fields) -> None:
@@ -2482,6 +2565,492 @@ def _edges_per_s(edges: int, ms: float) -> float:
     return edges / (ms * 1e-3)
 
 
+def timed(fn):
+    """fn() once on the card: (its result, host seconds to a synchronised
+    end, CUDA-event milliseconds between its first and last launch)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def agree_logits(name: str, got: torch.Tensor, want: torch.Tensor,
+                 tol: tuple[float, float] | None = None) -> float:
+    """Card logits against the CPU's, relative to the CPU logits' scale
+    (max and mean): TF_F32_TOL unless `tol` is given."""
+    return agree_scaled(f"{name}: card vs CPU", got.cpu(), want.cpu(), torch.float32,
+                        tol or TF_F32_TOL)
+
+
+def control_moves(name: str, got: torch.Tensor, want: torch.Tensor, limit: float, check) -> None:
+    """A planted control: first that it moves the output by more than 10x
+    the limit (relative to the reference's scale), then that the check
+    rejects it."""
+    got, want = got.float().cpu(), want.float().cpu()
+    rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    far = rel > 10 * limit
+    say("control_size", name=name, max_rel_err=rel, limit=limit, far=far)
+    if not far:
+        raise AssertionError(f"control {name} moves the output by only {rel}")
+    expect_rejected(name, check)
+
+
+def greedy_with_gaps(weights, cfg, cache_cfg, prompts: np.ndarray, dev):
+    """Greedy batched decode through the decode step (as
+    make_batched_generate_fn runs it), keeping each generated step's top-2
+    logit gap: (tokens [B, P + N], gaps [B, N], the logits' scale)."""
+    step = make_decode_step(cfg, cache_cfg, dev)
+    caches = [kv_cache_init(cache_cfg, dev, batch=prompts.shape[0]) for _ in range(cfg.layers)]
+    p = torch.from_numpy(prompts).long().to(dev)
+    toks, gaps, scale, logits = [], [], 0.0, None
+    for pos in range(TF_PROMPT + TF_NEW):
+        if pos < TF_PROMPT:
+            tok = p[:, pos]
+        else:
+            top2 = torch.topk(logits, 2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            tok = torch.argmax(logits, dim=-1)
+        logits, caches = step(weights, caches, tok, pos, True)
+        scale = max(scale, float(logits.abs().max()))
+        toks.append(tok)
+    return torch.stack(toks, 1).cpu(), torch.stack(gaps, 1).cpu(), scale
+
+
+def warm_caches(step, weights, cfg, cache_cfg, prompts: torch.Tensor, dev):
+    """The prompts through the decode step: (caches, the next token's
+    logits [B, logits])."""
+    caches = [kv_cache_init(cache_cfg, dev, batch=prompts.shape[0]) for _ in range(cfg.layers)]
+    logits = None
+    for pos in range(prompts.shape[1]):
+        logits, caches = step(weights, caches, prompts[:, pos], pos, True)
+    return caches, logits
+
+
+def same_tokens(name: str, got: torch.Tensor, want: torch.Tensor, counts, gaps=None) -> None:
+    """Each sequence's first counts[i] tokens equal; before failing, the
+    first position that differs and the reference's top-2 gap there."""
+    bad = []
+    for i in range(got.shape[0]):
+        k = int(counts[i])
+        diff = torch.nonzero(got[i, :k].cpu() != want[i, :k].cpu()).flatten()
+        if diff.numel():
+            j = int(diff[0])
+            bad.append((i, j, None if gaps is None else float(gaps[i, j])))
+    if bad:
+        say("token_mismatch", name=name, sequence_position_gap=bad)
+        raise AssertionError(f"{name}: {len(bad)} sequences differ")
+
+
+def _tf_train(cfg) -> dict:
+    """Early-exit training at full width, then its first step at batch 2
+    against the CPU: in float64 the loss and each leaf's gradient norm
+    within 1e-4 relative; in float32 the card no further from the float64
+    step than twice the CPU is."""
+    t0 = time.perf_counter()
+    res = train_early_exit(cfg, draft_layers=TF_DRAFT, device=DEV, **TF_TRAIN)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fields = {"train_s": round(train_s, 3), "loss_first": res.losses[0],
+              "loss_last": res.losses[-1], "full_acc": res.full_acc,
+              "draft_acc": res.draft_acc, "agreement": res.agreement,
+              "n_params": sum(t.numel() for t in tree_leaves(res.weights)),
+              "train_ms_per_step": round(train_s * 1e3 / TF_TRAIN["steps"], 3)}
+    if res.agreement < 0.8 or not all(np.isfinite(res.losses)):
+        raise AssertionError(f"early-exit training: agreement {res.agreement} < 0.8")
+
+    seed = TF_TRAIN["seed"]
+    toks_np, _ = markov_corpus(seed, cfg.vocab, n_seq=512, seq_len=TF_TRAIN["seq_len"])
+    idx = np.random.default_rng(seed + 1).integers(0, len(toks_np), TF_TRAIN["batch"])[:2]
+    batch = torch.from_numpy(toks_np[idx])
+    w0 = init_weights(torch.Generator().manual_seed(seed), cfg, quantize=False, device="cpu")
+
+    def loss_and_norms(dev, dtype):
+        w = tree_map(lambda t: t.detach().to(dev, dtype).requires_grad_(True), w0)
+        loss = early_exit_loss(w, cfg, batch.to(dev), TF_DRAFT)
+        grads = torch.autograd.grad(loss, tree_leaves(w))
+        return np.array([float(loss.detach())] + [float(torch.linalg.vector_norm(g))
+                                                  for g in grads])
+
+    def rel(a, b):
+        return np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+
+    # the check: the same step in float64 on the card and on the CPU, where
+    # the sums' order cannot move the loss or a norm by 1e-4
+    d64, c64 = loss_and_norms(DEV, torch.float64), loss_and_norms("cpu", torch.float64)
+    err64 = rel(d64, c64)
+    # float32 beside it, each side against the CPU's float64: the card's
+    # error may not exceed twice the CPU's (a product that lost precision,
+    # TF32 say, would)
+    d32, c32 = loss_and_norms(DEV, torch.float32), loss_and_norms("cpu", torch.float32)
+    card32, cpu32 = rel(d32, c64), rel(c32, c64)
+    fields.update(step_loss=c64[0], step_f64_max_rel_err=float(err64.max()),
+                  step_f32_cpu_worst_leaf=int(np.argmax(cpu32)) - 1,
+                  step_f32_card_vs_cpu_max_rel_err=float(rel(d32, c32).max()),
+                  step_f32_card_vs_f64_max_rel_err=float(card32.max()),
+                  step_f32_cpu_vs_f64_max_rel_err=float(cpu32.max()),
+                  step_f32_worst_leaf=int(np.argmax(card32)) - 1)
+    if err64.max() > 1e-4:
+        raise AssertionError(f"first train step in float64: loss or a gradient norm "
+                             f"{err64.max()} off the CPU's (leaf {int(np.argmax(err64)) - 1})")
+    if card32.max() > 2 * cpu32.max() + 1e-6:
+        raise AssertionError(f"first train step in float32: the card {card32.max()} off "
+                             f"float64, the CPU {cpu32.max()}")
+    say("transformer_train", **fields, ok=True)
+    return res.weights
+
+
+def _tf_decode(weights, cfg) -> dict:
+    """Greedy and speculative batched decoding (benchmarks/spec_at_size.py's
+    protocol and counts), their first logits and teacher-forced logits
+    against the CPU, greedy streams against the CPU's, and two controls."""
+    fields = {}
+    cache_cfg = KVCacheConfig(hot_capacity=TF_HOT, warm_capacity=0, archive_capacity=0,
+                              heads=cfg.heads, head_dim=cfg.head_dim)
+    prompts, _ = markov_corpus(0, cfg.vocab, n_seq=TF_BATCH, seq_len=TF_PROMPT,
+                               sample_seed=1234)
+    prompts_d = torch.from_numpy(prompts).long().to(DEV)
+    fresh = [kv_cache_init(cache_cfg, DEV, batch=TF_BATCH) for _ in range(cfg.layers)]
+
+    # --- greedy: the batched whole-generation loop ---
+    gen_b = make_batched_generate_fn(cfg, cache_cfg, TF_PROMPT, TF_NEW, device=DEV)
+    gen_b(weights, fresh, prompts)                                   # first call
+    (out_g, _), greedy_s, greedy_ev_ms = timed(lambda: gen_b(weights, fresh, prompts))
+    greedy_tps = TF_BATCH * (TF_PROMPT + TF_NEW) / greedy_s
+    fields.update(greedy_s=greedy_s, greedy_event_ms=greedy_ev_ms,
+                  greedy_tokens_per_s=greedy_tps,
+                  greedy_ms_per_step=greedy_s * 1e3 / (TF_PROMPT + TF_NEW))
+    toks_g = out_g[:, TF_PROMPT:].cpu()
+
+    # --- speculative: caches warmed on the prompt, then the batched loop ---
+    step = make_decode_step(cfg, cache_cfg, DEV)
+    sgen = make_speculative_generate_fn(cfg, cache_cfg, SpecDecodeConfig(TF_GAMMA, TF_DRAFT),
+                                        TF_NEW, device=DEV)
+    caches_w, first_logits = warm_caches(step, weights, cfg, cache_cfg, prompts_d, DEV)
+    first = torch.argmax(first_logits, dim=-1)
+    sgen(weights, caches_w, first)                                   # first call
+    out_s, spec_s, spec_ev_ms = timed(lambda: sgen(weights, caches_w, first))
+    toks_s, counts, _, acc_totals, commits = (x.cpu() if torch.is_tensor(x) else x
+                                              for x in out_s)
+    accs = []
+    for i in range(TF_BATCH):
+        n_macros = int(np.searchsorted(np.cumsum(commits[i].numpy()), float(counts[i]))) + 1
+        accs.append(float(acc_totals[i]) / max((TF_GAMMA - 1) * n_macros, 1))
+    g_toks, g_gaps, g_scale = greedy_with_gaps(weights, cfg, cache_cfg, prompts, DEV)
+    same_tokens("greedy loop vs make_batched_generate_fn", g_toks, out_g.cpu(),
+                [TF_PROMPT + TF_NEW] * TF_BATCH)
+    same_tokens("speculative vs greedy", toks_s, toks_g, counts, g_gaps)
+    fields.update(spec_s=spec_s, spec_event_ms=spec_ev_ms,
+                  spec_tokens_per_s=TF_BATCH * TF_NEW / spec_s,
+                  acceptance=float(np.mean(accs)), macro_steps=int((commits > 0).sum(1).max()),
+                  speedup_vs_greedy=(greedy_s / (TF_PROMPT + TF_NEW)) / (spec_s / TF_NEW),
+                  token_identical_to_greedy=True)
+
+    # --- against the CPU: the f32 route ---
+    w_cpu = _tree_cpu(weights)
+    step_c = make_decode_step(cfg, cache_cfg, "cpu")
+    caches_c, first_logits_c = warm_caches(step_c, w_cpu, cfg, cache_cfg,
+                                           prompts_d.cpu(), "cpu")
+    agree_logits("prompt's last decode logits", first_logits, first_logits_c)
+    dec_logits, _ = step(weights, caches_w, first, TF_PROMPT, True)
+    dec_logits_c, _ = step_c(w_cpu, caches_c, first.cpu(), TF_PROMPT, True)
+    agree_logits("first decode logits", dec_logits, dec_logits_c)
+    ev_np, _ = markov_corpus(TF_TRAIN["seed"], cfg.vocab, n_seq=TF_BATCH,
+                             seq_len=TF_TRAIN["seq_len"], sample_seed=TF_TRAIN["seed"] + 99)
+    ev = torch.from_numpy(ev_np).long()
+    depths = (TF_DRAFT, cfg.layers)
+    with torch.no_grad():
+        tf_d = seq_logits_at_depths(weights, cfg, ev.to(DEV), depths)
+        tf_c = seq_logits_at_depths(w_cpu, cfg, ev, depths)
+    for depth, a, b in zip(depths, tf_d, tf_c):
+        agree_logits(f"teacher-forced logits at depth {depth}", a, b)
+    c_toks, c_gaps, c_scale = greedy_with_gaps(w_cpu, cfg, cache_cfg, prompts, "cpu")
+    near_tie = c_gaps < 1e-5 * c_scale
+    first_tie = [int(torch.nonzero(row).flatten()[0]) if bool(row.any()) else TF_NEW
+                 for row in near_tie]
+    same_tokens("greedy streams, card vs CPU, before each first near tie", toks_g,
+                c_toks[:, TF_PROMPT:], first_tie, c_gaps)
+    fields.update(cpu_first_near_tie_step=[t if t < TF_NEW else None for t in first_tie],
+                  cpu_min_top2_gap_rel=float(c_gaps.min()) / c_scale,
+                  card_min_top2_gap_rel=float(g_gaps.min()) / g_scale,
+                  greedy_equal_cpu=bool(torch.equal(toks_g, c_toks[:, TF_PROMPT:])))
+
+    say("transformer_decode", batch=TF_BATCH, prompt=TF_PROMPT, new_tokens=TF_NEW,
+        gamma=TF_GAMMA, draft_layers=TF_DRAFT, hot=TF_HOT, **fields)
+    return {"step": step, "caches_w": caches_w, "first": first, "dec_logits_c": dec_logits_c,
+            "ev": ev, "tf_c": tf_c[1], "sgen": sgen, "toks_g": toks_g}
+
+
+def _tf_controls(weights, cfg, ctx: dict) -> None:
+    """Three planted faults, each first shown to move its output well past
+    the limit, then rejected by the check the real path passed: the
+    exact-erf GELU (teacher-forced logits against the CPU's), RoPE
+    positions off by one in the decode step (first decode logits against
+    the CPU's), a verify that accepts every draft (speculative tokens
+    against greedy)."""
+    with torch.no_grad(), mock.patch.object(tf_model, "_gelu", F.gelu):   # exact erf GELU
+        bad = seq_logits_at_depths(weights, cfg, ctx["ev"].to(DEV), (cfg.layers,))[0]
+    control_moves("teacher-forced logits with the exact-erf GELU", bad, ctx["tf_c"],
+                  TF_F32_TOL[0],
+                  lambda: agree_logits("teacher-forced logits, erf GELU (control)", bad,
+                                       ctx["tf_c"]))
+    shifted = lambda x, pos, c, s: rope_rotate(x, pos + 1, c, s)        # noqa: E731
+    with mock.patch.object(tf_decode, "rope_rotate", shifted):
+        bad, _ = ctx["step"](weights, ctx["caches_w"], ctx["first"], TF_PROMPT, True)
+    control_moves("first decode logits with RoPE positions off by one", bad,
+                  ctx["dec_logits_c"], TF_F32_TOL[0],
+                  lambda: agree_logits("first decode logits, RoPE + 1 (control)", bad,
+                                       ctx["dec_logits_c"]))
+    accept_all = lambda toks, targets: torch.full(                       # noqa: E731
+        (toks.shape[0],), toks.shape[1] - 1, dtype=torch.long, device=toks.device)
+    with mock.patch.object(tf_spec, "accepted_drafts", accept_all):
+        bad_s = ctx["sgen"](weights, ctx["caches_w"], ctx["first"])[0].cpu()
+    wrong = int((bad_s != ctx["toks_g"]).sum())
+    say("control_size", name="a verify that accepts every draft", tokens_wrong=wrong,
+        of=TF_BATCH * TF_NEW, far=wrong > 0)
+    if wrong == 0:
+        raise AssertionError("control: accepting every draft left the tokens unchanged")
+    expect_rejected("a verify that accepts every draft", lambda: same_tokens(
+        "speculative, every draft accepted (control)", bad_s, ctx["toks_g"],
+        [TF_NEW] * TF_BATCH))
+
+
+class CodeRecorder:
+    """Wraps model.int8_matmul: keeps every call's activation codes."""
+
+    def __init__(self):
+        self.codes = []
+
+    def __call__(self, x, w_q, w_scale, bias=None):
+        self.codes.append(quantize_activation_int8(x)[0].cpu())
+        return int8_matmul(x, w_q, w_scale, bias)
+
+
+def _tf_tiers(cfg) -> dict:
+    """The tier programs on the int8 route at full width with a 512-token
+    prompt, driven by the gate packets of tests/test_transformer.py:39-110
+    and once more with min-cut sparse attention and MoD routing: witnesses
+    deterministic, logits within 5e-2 of the CPU's; int8 codes and int32
+    sums equal on equal inputs."""
+    fields = {}
+    wq = init_weights(torch.Generator().manual_seed(1), cfg, quantize=True, device=DEV)
+    wq_c = _tree_cpu(wq)
+    toks, _ = markov_corpus(2, cfg.vocab, n_seq=1, seq_len=TF_TIER_TOKENS)
+    tokens = toks[0]
+    policy = GatePolicy()
+    model = MincutGatedTransformer(cfg, policy, wq, device=DEV)
+    model_c = MincutGatedTransformer(cfg, policy, wq_c, device="cpu")
+    # tests/test_transformer.py:228-230's routing: 15% of the tokens (the
+    # most recent) compute, fewer than the last token's receptive field of
+    # 12 x 15 positions, so the logits change (the default 50% would not)
+    mod = ModRoutingConfig(layer_capacity_ratio=0.15, min_tokens_per_layer=2,
+                           adaptive_capacity=False)
+    sparse = MincutGatedTransformer(cfg, policy, wq, sparsity_config=SparsityConfig(),
+                                    mod_config=mod, device=DEV)
+    sparse_c = MincutGatedTransformer(cfg, policy, wq_c, sparsity_config=SparsityConfig(),
+                                      mod_config=mod, device="cpu")
+    runs = {
+        "normal": (model, model_c, GatePacket(lam=100, lam_prev=100), None),
+        "reduced": (model, model_c, GatePacket(boundary_edges=100), None),
+        "safe": (model, model_c, GatePacket(flags=GatePacket.FLAG_FORCE_SAFE), None),
+        "quarantine": (model, model_c, GatePacket(lam=5), None),
+        "flush": (model, model_c, GatePacket(lam=40, lam_prev=100), None),
+        "spike_storm": (model, model_c, GatePacket(), SpikePacket(fired=1, rate_q15=30000)),
+        "skip": (model, model_c, GatePacket(flags=GatePacket.FLAG_SKIP), None),
+        "spike_inactive": (model, model_c, GatePacket(), SpikePacket(fired=0)),
+        "sparse_mod": (sparse, sparse_c, GatePacket(lam=100, partition_count=4), None),
+    }
+    tiers = {}
+    for name, (m, m_c, gate, spikes) in runs.items():
+        rec, rec_c = CodeRecorder(), CodeRecorder()
+        with mock.patch.object(tf_model, "int8_matmul", rec):
+            out = m.infer(tokens=tokens, gate=gate, spikes=spikes)
+        again = m.infer(tokens=tokens, gate=gate, spikes=spikes)
+        if dataclasses.asdict(again.witness) != dataclasses.asdict(out.witness):
+            raise AssertionError(f"tier {name}: the same input gave another witness")
+        _, host_s, ev_ms = timed(lambda: m.infer(tokens=tokens, gate=gate, spikes=spikes))
+        if not np.isfinite(out.logits).all() or out.logits.shape != (cfg.logits,):
+            raise AssertionError(f"tier {name}: logits not finite or of the wrong shape")
+        with mock.patch.object(tf_model, "int8_matmul", rec_c):
+            out_c = m_c.infer(tokens=tokens, gate=gate, spikes=spikes)
+        if (out.witness.tier, out.witness.layers_run, out.witness.decision) != (
+                out_c.witness.tier, out_c.witness.layers_run, out_c.witness.decision):
+            raise AssertionError(f"tier {name}: the card's witness differs from the CPU's")
+        dev_err = agree_logits(f"tier {name} logits (int8 route)", torch.from_numpy(out.logits),
+                               torch.from_numpy(out_c.logits), (TF_INT8_TOL, TF_INT8_TOL))
+        scale = max(float(np.abs(out_c.logits).max()), 1e-30)
+        n_codes = sum(c.numel() for c in rec_c.codes)
+        differ = sum(int((a != b).sum()) for a, b in zip(rec.codes, rec_c.codes))
+        tiers[name] = {"tier": out.witness.tier, "layers_run": out.witness.layers_run,
+                       "ms": round(host_s * 1e3, 3), "event_ms": round(ev_ms, 3),
+                       "max_logit_dev": dev_err, "max_logit_rel_dev": dev_err / scale,
+                       "codes_differ_share": differ / n_codes if n_codes else 0.0}
+    if np.array_equal(sparse.infer(tokens=tokens, gate=runs["sparse_mod"][2]).logits,
+                      model.infer(tokens=tokens, gate=runs["sparse_mod"][2]).logits):
+        raise AssertionError("sparse attention + MoD left the normal tier's logits unchanged")
+    fields["tiers"] = json.dumps(tiers, separators=(",", ":"))
+
+    # int8 codes and int32 sums, card vs CPU, on layer 0's own input
+    layer = wq["layers"][0]
+    with torch.no_grad():
+        x = tf_model._embed(wq, torch.from_numpy(tokens).to(DEV))
+        h = tf_model._ln(layer["ln1"], x)
+    x_q, x_s = quantize_activation_int8(h)
+    x_qc, x_sc = quantize_activation_int8(h.cpu())
+    equal_cpu("layer 0 activation codes", x_q, x_qc)
+    equal_cpu("layer 0 activation scales", x_s, x_sc)
+    for leaf in ("qkv", "ffn_in"):            # [1024, 3072] and [1024, 4096]
+        p = layer[leaf]
+        equal_cpu(f"layer 0 {leaf} int32 sums", int8_sums(x_q, p["w_q"]),
+                  int8_sums(x_qc, p["w_q"].cpu()))
+        equal_cpu(f"layer 0 {leaf} int8_matmul", int8_matmul(h, p["w_q"], p["scale"], p["bias"]),
+                  int8_matmul(h.cpu(), p["w_q"].cpu(), p["scale"].cpu(), p["bias"].cpu()))
+    say("transformer_tiers", prompt=TF_TIER_TOKENS, **fields, ok=True)
+    return tiers
+
+
+def _tf_cache(weights, cfg) -> tuple[KVCacheConfig, KVCacheState]:
+    """The Decoder's default tiered cache (hot = window_normal, warm =
+    archive = seq_len_max) through enough tokens that the archive ring
+    wraps, three gate-frozen steps among them: every layer's codes, scales
+    and positions equal a CPU cache fed the same per-step K/V."""
+    dec = Decoder(cfg, GatePolicy(), weights, device=DEV)
+    cc = dec.cache_cfg
+    n_tok = cc.hot_capacity + cc.warm_capacity + cc.archive_capacity + TF_CACHE_EXTRA
+    stream, _ = markov_corpus(3, cfg.vocab, n_seq=1, seq_len=n_tok)
+    frozen = {n_tok // 4, n_tok // 2, n_tok - 5}
+    caches = dec.init_caches()
+    rows, enabled, length = [], [], 0
+
+    def run():
+        nonlocal caches, length
+        for pos, tok in enumerate(stream[0]):
+            gate = GatePacket(lam=5) if pos in frozen else GatePacket()
+            kv_ok = dec.gate_controller.should_allow_kv_writes(gate)
+            _, caches = dec._step(weights, caches, int(tok), pos, kv_ok)
+            # the hot row this step wrote: its ring slot, or the scratch row
+            slot = length % cc.hot_capacity if kv_ok else cc.hot_capacity
+            rows.append(torch.stack([torch.stack([c.hot_k[slot], c.hot_v[slot]])
+                                     for c in caches]))
+            enabled.append(kv_ok)
+            length += int(kv_ok)
+
+    _, host_s, _ = timed(run)
+    rows_c = torch.stack(rows).cpu()                    # [N, L, 2, H, hd]
+    for li, cache in enumerate(caches):
+        ref = kv_cache_init(cc, device="cpu")
+        for i in range(n_tok):
+            ref = kv_cache_append(cc, ref, rows_c[i, li, 0], rows_c[i, li, 1], enabled[i])
+        for f in (field.name for field in dataclasses.fields(KVCacheState)):
+            got, want = getattr(cache, f).cpu(), getattr(ref, f)
+            if not torch.equal(got, want):
+                raise AssertionError(f"layer {li} cache {f}: the card differs from the CPU")
+    wrapped = int(caches[0].arch_pos.max()) >= cc.archive_capacity
+    if int(caches[0].length) != length or not wrapped:
+        raise AssertionError(f"tiered cache: length {int(caches[0].length)}, archive wrapped "
+                             f"{wrapped}")
+    fields = {"tokens": n_tok, "frozen_steps": len(frozen), "length": length,
+              "hot_warm_archive": [cc.hot_capacity, cc.warm_capacity, cc.archive_capacity],
+              "archive_wrapped": wrapped, "decode_s": host_s,
+              "decode_ms_per_token": host_s * 1e3 / n_tok, "layers_equal_cpu": len(caches)}
+    say("transformer_cache", **fields, ok=True)
+    return cc, caches[0]
+
+
+def _tf_subsystems(cache0: KVCacheState, cc: KVCacheConfig) -> dict:
+    """Mamba over 512 steps, spike-driven attention, spectral positions, and
+    KVQuant and SQuat on layer 0's cached K/V, each against the CPU."""
+    fields = {}
+    mcfg = MambaConfig.baseline()
+    mw = mamba_init(torch.Generator().manual_seed(4), mcfg, device=DEV)
+    xs = torch.randn(TF_MAMBA_STEPS, mcfg.d_model, generator=torch.Generator().manual_seed(5))
+    ys, host_s, _ = timed(lambda: mamba_forward_sequence(mcfg, mw, xs.to(DEV)))
+    agree_cpu(f"mamba over {TF_MAMBA_STEPS} steps", ys,
+              mamba_forward_sequence(mcfg, _tree_cpu(mw), xs))
+    fields["mamba_s"] = host_s
+
+    k, v, mask = kv_cache_read(cc, cache0)
+    live = mask > 0
+    k_live, v_live = k[live], v[live]                 # [T, H, hd], in ring order
+    head0 = k_live[:, 0].contiguous()
+    scfg = SpikeDrivenConfig()
+    equal_cpu("spike trains of layer 0's head-0 keys", encode_rate(head0, scfg),
+              encode_rate(head0.cpu(), scfg))
+    att, host_s, _ = timed(lambda: spike_driven_attention(head0, head0, v_live[:, 0], scfg))
+    agree_cpu("spike-driven attention on layer 0's head-0 K/V", att,
+              spike_driven_attention(head0.cpu(), head0.cpu(), v_live[:, 0].cpu(), scfg))
+    fields["spike_attention_ms"] = host_s * 1e3
+
+    n = head0.shape[0]
+    edges = [(i, (i + 1) % n) for i in range(n)] + [(i, (i + 7) % n) for i in range(0, n, 16)]
+    enc = SpectralPositionEncoder()
+    pe = enc.encode_from_edges(edges, n)
+    agree_cpu("spectral positions added to layer 0's keys", enc.add_to_embeddings(head0, pe),
+              enc.add_to_embeddings(head0.cpu(), pe))
+    lap = torch.from_numpy(laplacian_from_edges(edges, n, normalized=True))
+    agree_cpu("power iteration on the key graph's Laplacian", power_iteration(lap.to(DEV)),
+              power_iteration(lap))
+    src, dst = np.asarray(edges).T
+    csr = CSRGraph.from_edges(np.r_[src, dst], np.r_[dst, src], None, n, device=DEV)
+    csr_c = CSRGraph.from_edges(np.r_[src, dst], np.r_[dst, src], None, n, device="cpu")
+    agree_cpu("sparse power iteration", power_iteration_sparse(csr), power_iteration_sparse(csr_c))
+
+    keys = k_live.reshape(-1, cc.head_dim)
+    vals = v_live.reshape(-1, cc.head_dim)
+    kq, kq_c = kvquant_quantize_keys(keys), kvquant_quantize_keys(keys.cpu())
+    equal_cpu("KVQuant key codes", kq.q, kq_c.q)
+    equal_cpu("KVQuant key scales", kq.scale, kq_c.scale)
+    nv, nv_c = kvquant_quantize_values(vals), kvquant_quantize_values(vals.cpu())
+    equal_cpu("KVQuant value codes", nv.q, nv_c.q)
+    equal_cpu("KVQuant value outliers", nv.outlier_mask, nv_c.outlier_mask)
+    basis = squat_learn_basis(keys, num_subspaces=4, bits=4)
+    carried = SQuatBasis(basis.basis.cpu(), 4, 4)
+    sq, sq_c = squat_quantize(keys, basis), squat_quantize(keys.cpu(), carried)
+    rec = squat_dequantize(sq, basis)
+    rec_c = squat_dequantize(sq_c, carried)
+    mse, mse_c = float(torch.mean((rec - keys) ** 2)), float(torch.mean((rec_c - keys.cpu()) ** 2))
+    if abs(mse - mse_c) > 1e-2 * mse_c:
+        raise AssertionError(f"SQuat reconstruction error: card {mse}, CPU {mse_c}")
+    fields.update(kv_rows=int(keys.shape[0]),
+                  kvquant_key_mse=float(torch.mean((kvquant_dequantize_keys(kq) - keys) ** 2)),
+                  squat_mse=mse, squat_codes_differ_share=float(
+                      (sq.codes.cpu() != sq_c.codes).float().mean()))
+    say("transformer_subsystems", mamba_steps=TF_MAMBA_STEPS, mamba_d_model=mcfg.d_model,
+        **fields, ok=True)
+    return fields
+
+
+def phase_transformer() -> None:
+    """The min-cut-gated transformer (`[transformer]`, no kernel) at
+    benchmarks/spec_at_size.py:59-70's full width (12 layers, hidden 1024,
+    16 heads, vocab and logits 512; nothing cut): early-exit training (250
+    Adam steps, batch 16), greedy and speculative batched decoding of 4
+    prompts (128 new tokens, gamma 6, a 2-layer draft), the tier programs
+    on the int8 route, the tiered KV cache through every tier, and the
+    subsystems; each against the same function on the CPU, with three
+    planted controls (the exact-erf GELU, RoPE positions off by one in the
+    decode step, a verify that accepts every draft; run last). Times: the host clock
+    around a synchronised call (as the JAX bench times), CUDA events
+    beside it."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    cfg = TransformerConfig(**TF_CFG)
+    weights = _tf_train(cfg)
+    ctx = _tf_decode(weights, cfg)
+    _tf_tiers(cfg)
+    cc, cache0 = _tf_cache(weights, cfg)
+    _tf_subsystems(cache0, cc)
+    _tf_controls(weights, cfg, ctx)
+    if kernels.launch_counts() != before:
+        raise AssertionError("the transformer launched a kernel")
+    say("transformer", layers=cfg.layers, hidden=cfg.hidden, heads=cfg.heads, vocab=cfg.vocab,
+        kernel_launches=0, seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def phase_csr_spmm(d: int) -> dict:
     """The port's counterpart of benchmarks/csr_spmm_bench.py:58-159. The
     regular graph (cluster_graph, CSR_NODES, k=16): spmm_padded, K9 on the
@@ -2718,6 +3287,10 @@ def main() -> int:
     phase_quantization(d)
     sp = phase_csr_spmm(d)
     launches["spmm_gather"] = sp["launches"]
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    phase_transformer()
+    say("transformer_memory", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
 
     # --- kernels at the main paths' shapes ------------------------------------
     report = []
@@ -2814,7 +3387,7 @@ def main() -> int:
                 bound_by=bound_by, library_ms=library_ms, **extra)
             del want
     say("done", seconds=round(time.perf_counter() - t_start, 1),
-        peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
+        peak_mem_gb=round(max(peak_before, torch.cuda.max_memory_allocated()) / 1e9, 2))
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

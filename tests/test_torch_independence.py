@@ -74,8 +74,31 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_from_x
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
 from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather
+from ruvector_tpu_torch.transformer import (
+    Decoder,
+    GatePacket,
+    GatePolicy,
+    KVCacheConfig,
+    MincutGatedTransformer,
+    SpecDecodeConfig,
+    TransformerConfig,
+    init_weights,
+    kv_cache_init,
+    make_batched_generate_fn,
+    make_decode_step,
+    make_generate_fn,
+    make_speculative_generate_fn,
+)
+from ruvector_tpu_torch.transformer.mamba import MambaConfig, mamba_init, mamba_state_init
+from ruvector_tpu_torch.transformer.train_spec import train_early_exit
 
 REPO = Path(__file__).resolve().parents[1]
+# the transformer's entry points at a tiny width (2 layers, hidden 16)
+_TINY = TransformerConfig(seq_len_max=16, hidden=16, heads=2, layers=2, window_normal=4,
+                          window_degraded=2, logits=32, vocab=32, layers_degraded=1,
+                          seq_len_degraded=8, seq_len_safe=4)
+_TINY_CACHE = KVCacheConfig(hot_capacity=4, warm_capacity=4, archive_capacity=4, heads=2,
+                            head_dim=8)
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -89,6 +112,11 @@ for new in ("attention.dual_space", "attention.mixed_curvature", "attention.topo
             "attention.sdk", "utils.witness", "ops.quantization", "ops.compress", "ops.q15",
             "ops.temporal_tensor", "ops.temporal_tiers"):
     assert "ruvector_tpu_torch." + new in names, new
+for mod in ("config", "packets", "gate", "quant", "kv_cache", "sparse_attention",
+            "mod_routing", "model", "trace", "decode", "spec_decode", "train_spec",
+            "speculative", "kv_metrics", "kv_quantizers", "spike", "spike_attention",
+            "mamba", "spectral"):
+    assert "ruvector_tpu_torch.transformer." + mod in names, mod
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -101,12 +129,13 @@ def test_imports_no_jax_and_no_jax_package():
     """Whole module names: `ruvector_tpu_torch` starts with `ruvector_tpu`.
     The walk covers every module, the training package, the distance ops,
     the serving path, the K8/K9 wrappers, the GNN model family, the whole
-    attention family, the witness log and the quantization ops included."""
+    attention family, the witness log, the quantization ops and the 19
+    modules of the min-cut-gated transformer included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 78
+    assert int(count) >= 98
     assert bad == "[]"
 
 
@@ -150,6 +179,18 @@ _ENTRY_POINTS = {
     "quantize_bits": lambda: temporal_tensor.quantize_bits(np.ones(4, np.float32), 8),
     "TemporalTensorStore": lambda: temporal_tensor.TemporalTensorStore(),
     "temporal_tiers.TemporalTensorStore": lambda: temporal_tiers.TemporalTensorStore(8),
+    "transformer.init_weights": lambda: init_weights(torch.Generator(), _TINY),
+    "MincutGatedTransformer": lambda: MincutGatedTransformer(_TINY, GatePolicy(), {}),
+    "Decoder": lambda: Decoder(_TINY, GatePolicy(), {"layers": []}),
+    "make_decode_step": lambda: make_decode_step(_TINY, _TINY_CACHE),
+    "make_generate_fn": lambda: make_generate_fn(_TINY, _TINY_CACHE, 2, 2),
+    "make_batched_generate_fn": lambda: make_batched_generate_fn(_TINY, _TINY_CACHE, 2, 2),
+    "make_speculative_generate_fn": lambda: make_speculative_generate_fn(
+        _TINY, _TINY_CACHE, SpecDecodeConfig(), 2),
+    "kv_cache_init": lambda: kv_cache_init(_TINY_CACHE),
+    "train_early_exit": lambda: train_early_exit(_TINY, steps=1, batch=1, seq_len=4),
+    "mamba_init": lambda: mamba_init(torch.Generator(), MambaConfig.micro()),
+    "mamba_state_init": lambda: mamba_state_init(MambaConfig.micro()),
 }
 
 
@@ -188,6 +229,13 @@ _CPU_INITS = {
     "preset": lambda: preset("switch_transformer", 8, device="cpu").params,
     "pq_train": lambda: [pq_train(np.eye(8, dtype=np.float32), 2, 4, 1,
                                   device="cpu").codebooks],
+    "transformer.init_weights": lambda: init_weights(torch.Generator().manual_seed(0), _TINY,
+                                                     device="cpu"),
+    "transformer.init_weights_f32": lambda: init_weights(torch.Generator().manual_seed(0),
+                                                         _TINY, quantize=False, device="cpu"),
+    "kv_cache_init": lambda: [kv_cache_init(_TINY_CACHE, device="cpu", batch=2).hot_k],
+    "mamba_init": lambda: mamba_init(torch.Generator().manual_seed(0), MambaConfig.micro(),
+                                     device="cpu"),
 }
 
 
@@ -199,6 +247,34 @@ def test_family_inits_run_on_the_cpu_when_asked(name):
 
     leaves = tree_leaves(_CPU_INITS[name]())
     assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+def test_transformer_entry_points_run_on_the_cpu_when_asked():
+    """The tiered model, the decoder and the generation factories with
+    device="cpu": every output on the CPU, and speculative decoding equal
+    to greedy."""
+    weights = init_weights(torch.Generator().manual_seed(0), _TINY, device="cpu")
+    out = MincutGatedTransformer(_TINY, GatePolicy(), weights, device="cpu").infer(
+        tokens=np.arange(5), gate=GatePacket())
+    assert out.logits.shape == (32,) and out.witness.layers_run == 2
+    dec = Decoder(_TINY, GatePolicy(), weights, cache_cfg=_TINY_CACHE, device="cpu")
+    greedy = dec.generate(np.asarray([1, 2]), max_new_tokens=3).tokens
+    assert dec.generate_speculative(np.asarray([1, 2]), max_new_tokens=3, gamma=2).tokens == \
+        greedy
+    step = make_decode_step(_TINY, _TINY_CACHE, device="cpu")
+    logits, caches = step(weights, dec.init_caches(), 1, 0, True)
+    assert logits.device.type == "cpu" and caches[0].hot_k.device.type == "cpu"
+    toks, _ = make_generate_fn(_TINY, _TINY_CACHE, 2, 3, device="cpu")(
+        weights, dec.init_caches(), np.asarray([1, 2]))
+    assert toks.tolist() == greedy[:5]
+    toks_b, _ = make_batched_generate_fn(_TINY, _TINY_CACHE, 2, 3, device="cpu")(
+        weights, dec.init_caches(batch=2), np.asarray([[1, 2], [1, 2]]))
+    assert toks_b.tolist() == [greedy[:5]] * 2
+    spec = make_speculative_generate_fn(_TINY, _TINY_CACHE, SpecDecodeConfig(2, 1), 3,
+                                        device="cpu")
+    _, c = make_generate_fn(_TINY, _TINY_CACHE, 2, 0, device="cpu")(
+        weights, dec.init_caches(), np.asarray([1, 2]))
+    assert spec(weights, c, greedy[2])[0].tolist() == greedy[2:5]
 
 
 def _k3_inputs(device):
