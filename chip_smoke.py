@@ -25,6 +25,20 @@ card:
     SDK presets, the min-cut gate over the 390 consecutive 256-node
     sequences (its masks against the host Dinic) and the coherence-gated
     transformer over 8192 nodes, each against the CPU.
+  * the solvers (`[solver]`, no kernel) on an SPD system built from the
+    same graph (A = 0.05 L_w + I, symmetrised): CG with and without its
+    preconditioner, Jacobi, the Neumann series, push, power and
+    random-walk PageRank, the sketched TRUE solve, the orchestrator's
+    routing, and BMSSP's V-cycles on tests/test_solver_quant.py's grid,
+    each against the CPU.
+  * the rest of the graph transformers (`[graph_transformer_rest]`, no
+    kernel) on the same graph at d=128: the 2-layer graph transformer
+    block, LSH and PPR-sampled attention, the Hamiltonian net and the
+    conservative PDE, spiking attention, STDP and Oja, the morphogenetic
+    field, growth and coarsening, Ollivier-Ricci routing, geodesic
+    message passing and Riemannian Adam, causal attention and Granger,
+    Shapley, Nash and incentive attention, and verified training with its
+    certificate, each against the CPU.
   * the min-cut-gated graph transformer's serving path (BASELINE config
     5, benchmarks/config5_r03.py): 999,936 nodes in clusters of 128 with
     exact within-cluster k=16 kNN made on the card, 256-node partitions
@@ -72,12 +86,14 @@ before that line; so does a run without a CUDA card or without the
 package beside this script.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py solver graph_transformer_rest    (those phases alone)
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -138,7 +154,52 @@ from ruvector_tpu_torch.graph import (  # noqa: E402
     build_block_dense,
     build_knn_graph,
 )
-from ruvector_tpu_torch.graph_transformer import gated  # noqa: E402
+from ruvector_tpu_torch.attention.hyperbolic import poincare_distance  # noqa: E402
+from ruvector_tpu_torch.graph_transformer import (  # noqa: E402
+    BiologicalConfig,
+    CurvatureAdaptiveRouter,
+    DevelopmentalProgram,
+    EnergyGateInvariant,
+    GraphCoarsener,
+    GraphTransformerConfig,
+    HamiltonianGraphNet,
+    IncentiveState,
+    LipschitzBound,
+    LossStabilityBound,
+    MorphogeneticField,
+    PhysicsConfig,
+    SpikingGraphAttention,
+    SublinearConfig,
+    VerifiedTrainer,
+    WeightNormBound,
+    conservative_pde_attention,
+    estimate_ollivier_ricci,
+    gated,
+    geodesic_message_passing,
+    granger_causality,
+    graph_transformer_apply,
+    graph_transformer_init,
+    hamiltonian,
+    hebbian_update,
+    incentive_aligned_step,
+    k_winners_take_all,
+    lsh_bucket_assignments,
+    lsh_bucket_attention,
+    nash_attention,
+    ppr_sampled_attention,
+    riemannian_adam_init,
+    riemannian_adam_update,
+    shapley_attention,
+    stdp_update,
+    temporal_attention,
+    verify_causal_ordering,
+)
+from ruvector_tpu_torch.graph_transformer.economic import (  # noqa: E402
+    _coalition_value as eco_coalition_value,
+    shapley_permutations,
+)
+from ruvector_tpu_torch.graph_transformer.sublinear import lsh_planes  # noqa: E402
+from ruvector_tpu_torch.graph_transformer.verified import sorted_leaves  # noqa: E402
 from ruvector_tpu_torch.index import FlatIndex  # noqa: E402
 from ruvector_tpu_torch.models import (  # noqa: E402
     GATConfig,
@@ -275,6 +336,21 @@ from ruvector_tpu_torch.serve import (  # noqa: E402
     attention_rerank,
     retrieve_and_rerank,
 )
+from ruvector_tpu_torch.solver import (  # noqa: E402
+    BmsspSolver,
+    SolverOrchestrator,
+    TrueSolver,
+    backward_push_ppr,
+    cg_solve,
+    estimate_spectral_radius,
+    forward_push_ppr,
+    jacobi_solve,
+    neumann_solve,
+    ppr_power_iteration,
+    random_walk_ppr,
+)
+from ruvector_tpu_torch.solver import bmssp as sv_bmssp  # noqa: E402
+from ruvector_tpu_torch.solver import push as sv_push  # noqa: E402
 from ruvector_tpu_torch.serve.rerank import (  # noqa: E402
     rerank_scores,
     retrieve_candidates,
@@ -468,6 +544,31 @@ GNN_TRAIN_BATCH, GNN_TRAIN_STEPS = 4096, 3
 # the min-cut gate over the features' consecutive sequences: length, eps,
 # the sequences held against the host Dinic, the largest lam tried
 MC_SEQ, MC_EPS, MC_HOST, MC_LAM_MAX = 256, 0.01, 8, 1024.0
+# the solvers on the 100k-node graph (`[solver]`): the SPD system A = L_w +
+# I of the symmetrised kNN graph with its weights times SV_WEIGHT
+# (diagonally dominant, as tests/test_solver_quant.py's dd_matrix; at 0.05
+# the largest row sum, a hub's, is ~11, so A over it has rho(I - A) ~0.91,
+# under the router's 0.95 for the Neumann series), the residual at which the
+# iterations stop (float32: a residual of 1e-3 over 316 = ||b||), their
+# cap, the push's eps and sweeps, the random walks, and BMSSP's grid side
+# (tests/test_solver_quant.py:246's system; on the kNN graph the
+# aggregation finds no strong connection, so the coarsest level would be
+# the whole graph as one dense solve)
+SV_WEIGHT, SV_TOL, SV_MAX_ITERS, SV_PUSH_EPS, SV_SWEEPS = 0.05, 1e-3, 1000, 1e-6, 100
+SV_WALKS, SV_WALK_LEN, SV_GRID, SV_AMG_CYCLES = 100_000, 50, 20, 100
+# a solve's x on the card against the CPU's: both stop at a residual of
+# SV_TOL, and a run one iteration longer moves x by less than that
+SV_X_TOL = (SV_TOL, 1e-4)
+# the rest of the graph transformers on the same graph (`[graph_transformer_rest]`):
+# the rows of the graph-local subgraph (the first GT_ROWS nodes of the
+# main path's block order, for the O(N^2) forms: Ollivier-Ricci and the
+# verified trainer's loss) and of LSH attention, the PPR queries and how
+# many of them the CPU repeats, the temporal sequence, Shapley's nodes
+# and permutations, Nash's nodes, the steps of the leapfrog, the spiking
+# net, the morphogenetic field and the verified trainer
+GT_ROWS, GT_QUERIES, GT_CPU_QUERIES, GT_SEQ = 8192, 64, 4, 4096
+GT_SHAPLEY_N, GT_SHAPLEY_P, GT_NASH_N = 64, 32, 1024
+GT_LEAPFROG, GT_SPIKE_STEPS, GT_MORPH_STEPS, GT_TRAIN_STEPS = 10, 8, 50, 3
 # vector quantization on the re-rank's corpus: queries; PQ (training rows,
 # subvectors, centroids, iterations, the rows of the card-vs-CPU codebook
 # check); Q15 matmul [M, K] x [K, M]; the temporal stores' chunks of
@@ -1060,7 +1161,7 @@ def phase_train_parity(gparams, gcfg) -> None:
                                                     compute_bf16=cbf))
         q, k = gated._qk_proj(h, p["wq"], p["wk"], dataclasses.replace(
             gcfg, compute_dtype="bfloat16" if cbf else "float32"))
-        agree_rows(f"K6a block_gate_signature q/k {tag}",
+        agree_rows(f"K6a block_gate_signature q/k {tag} body={sig_body(b, cbf)}",
                    block_gate_signature(q, k, pad, eps=gcfg.eps, scale=scale),
                    block_gate_signature_reference(q, k, pad, eps=gcfg.eps, scale=scale))
     # bf16 at the halo layout's B = 240 (padded to 256 on the tensor cores)
@@ -1092,6 +1193,34 @@ def phase_train_parity(gparams, gcfg) -> None:
     agree_rows(f"K6b block_gate_signature_x B={H_BLOCK} bf16 body={sig_body(H_BLOCK, True)}",
                block_gate_signature_x(xh, ph, A_sig, eps=gcfg.eps, compute_bf16=True),
                block_gate_signature_x_reference(xh, ph, A_sig, eps=gcfg.eps, compute_bf16=True))
+    # K6a: bf16 q and k at the halo layout's B = 240 (the float64
+    # tensor-core body, padded to 256), the same q and k in float32 and
+    # bf16 at B = 320 (block_gemm), and bf16 random q and k at B in {32,
+    # 128, 256} x D in {32, 64, 128} (the tensor-core body)
+    qk_cases = []
+    for bs, xs_, ps_ in ((H_BLOCK, xh, ph), (320, h320, pad320)):
+        qs, ks = gated._qk_proj(xs_, p["wq"], p["wk"], gcfg)
+        qk_cases.append((f"B={bs} bf16", qs, ks, ps_, scale))
+        if bs == H_BLOCK:
+            qk_cases.append((f"B={bs} f32", qs.float(), ks.float(), ps_, scale))
+    for bs in (32, 128, 256):
+        for dd in (32, 64, 128):
+            pr = torch.ones(nb, bs)
+            pr[-1, bs - bs // 3:] = 0.0
+            qk_cases.append((f"B={bs} D={dd} bf16",
+                             torch.randn(nb, bs, dd, generator=gen).to(DEV, torch.bfloat16),
+                             torch.randn(nb, bs, dd, generator=gen).to(DEV, torch.bfloat16),
+                             pr.to(DEV), 1.0 / dd ** 0.5))
+    for tag, qs, ks, ps_, sc in qk_cases:
+        body = sig_body(qs.shape[1], qs.dtype == torch.bfloat16)
+        agree_rows(f"K6a block_gate_signature {tag} body={body}",
+                   block_gate_signature(qs, ks, ps_, eps=gcfg.eps, scale=sc),
+                   block_gate_signature_reference(qs, ks, ps_, eps=gcfg.eps, scale=sc))
+    bodies = {tag: sig_body(qs.shape[1], qs.dtype == torch.bfloat16)
+              for tag, qs, *_ in qk_cases[:3]}
+    say("k6a_bodies", **{t.replace(" ", "_").replace("=", ""): v for t, v in bodies.items()})
+    if list(bodies.values()) != ["tensor_core", "block_gemm", "block_gemm"]:
+        raise AssertionError(f"K6a's bodies: {bodies}")
     # the tensor-core K5b at B = 256: float32 grade, and two planted faults
     args = (h, keep, pad, A_cat, Wvo_cat)
     want = gated_block_attention_bwd_reference(*args, g, compute_bf16=True)
@@ -1564,7 +1693,11 @@ def phase_halo_signature_control(halo: dict, gparams, gcfg) -> None:
     every partition) against its plain version, and a fault planted in
     its tensor-core body, float32 sums, which must be rejected there. (On
     three random partitions the fault can pass: its float32 sums move a
-    row sum past 1e-6 only where they flip a bf16 rounding of Q.)"""
+    row sum past 1e-6 only where they flip a bf16 rounding of Q.) K6a on
+    the same stream's bf16 q and k, and its own float32-sums fault on
+    them with a cancelling pair planted: K6a rounds nothing between its
+    products, so without the pair the fault moves a row sum by about
+    1e-8 and flips a count only at eps, and the check cannot see it."""
     h, pad = halo["h"], halo["pad"]
     nb, b, _ = h.shape
     A_sig = gated._fold_sig_params(gparams[0], gcfg)
@@ -1576,7 +1709,39 @@ def phase_halo_signature_control(halo: dict, gparams, gcfg) -> None:
         f"control: K6b {tag} with float32 sums",
         block_gate_signature_x(h, pad, A_sig, eps=gcfg.eps, compute_bf16=True,
                                variant="f32_acc"), want))
+    # K6a on the halo layout's bf16 q and k, then on the same q and k with
+    # a cancelling pair of large products planted in every row: the exact
+    # body meets the plain version on both, the fault planted in its
+    # tensor-core body (float32 sums) not on the second
+    q, k = gated._qk_proj(h, gparams[0]["wq"], gparams[0]["wk"], gcfg)
+    scale = 1.0 / (gcfg.head_dim ** 0.5) / gcfg.num_heads
+    tag = f"halo layout nB={nb} B={b} bf16 body={sig_body(b, q.dtype == torch.bfloat16)}"
+    agree_rows(f"K6a block_gate_signature {tag}",
+               block_gate_signature(q, k, pad, eps=gcfg.eps, scale=scale),
+               block_gate_signature_reference(q, k, pad, eps=gcfg.eps, scale=scale))
+    qc, kc = plant_cancelling_pair(q, k)
+    want = block_gate_signature_reference(qc, kc, pad, eps=gcfg.eps, scale=scale)
+    agree_rows(f"K6a block_gate_signature {tag}, a cancelling pair planted",
+               block_gate_signature(qc, kc, pad, eps=gcfg.eps, scale=scale), want)
+    expect_rejected("K6a with float32 instead of float64 sums", lambda: agree_rows(
+        f"control: K6a {tag}, a cancelling pair planted, with float32 sums",
+        block_gate_signature(qc, kc, pad, eps=gcfg.eps, scale=scale, variant="f32_acc"), want))
     torch.cuda.synchronize()
+
+
+def plant_cancelling_pair(q, k, big: float = 256.0):
+    """q and k with columns 0 and D/2 replaced by a cancelling pair of
+    large products in every row: q[..., 0] = q[..., D/2] = big, k[..., 0]
+    = big, k[..., D/2] = -big. The pair's products sum to 0 exactly and
+    the float64 sums stay exact, while a float32 running sum loses the low
+    bits of the terms it adds beside big^2."""
+    d = q.shape[-1]
+    q, k = q.clone(), k.clone()
+    q[..., 0] = big
+    q[..., d // 2] = big
+    k[..., 0] = big
+    k[..., d // 2] = -big
+    return q, k
 
 
 def _tree_cpu(tree):
@@ -1970,6 +2135,505 @@ def _cgt_rest(feats: torch.Tensor, unit: torch.Tensor, d: int) -> dict:
     return fields
 
 
+# ---------------------------------------------------------------------------
+# the solvers and the rest of the graph transformers (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def spd_system(graph: NeighborGraph, weight: float):
+    """COO (rows, cols, vals, n) of A = L_w + I on the symmetrised graph:
+    off-diagonal -weight * w_ij (the mean of w_ij and w_ji where both
+    edges exist), diagonal 1 + the row's off-diagonal sum. Diagonally
+    dominant and SPD, as tests/test_solver_quant.py's systems."""
+    n = graph.num_nodes
+    mask = graph.nbr_mask.cpu().numpy().ravel() > 0
+    src = np.repeat(np.arange(n), graph.max_degree)[mask]
+    dst = graph.nbr_idx.cpu().numpy().astype(np.int64).ravel()[mask]
+    w = graph.edge_weight.cpu().numpy().astype(np.float64).ravel()[mask]
+    off = src != dst
+    r = np.concatenate([src[off], dst[off]])
+    c = np.concatenate([dst[off], src[off]])
+    key, inv = np.unique(r * n + c, return_inverse=True)
+    vals = weight * np.bincount(inv, weights=np.concatenate([w[off], w[off]])) / np.bincount(inv)
+    r, c = key // n, key % n
+    diag = 1.0 + np.bincount(r, weights=vals, minlength=n)
+    return (np.concatenate([r, np.arange(n)]), np.concatenate([c, np.arange(n)]),
+            np.concatenate([-vals, diag]), n)
+
+
+def grid_laplacian(side: int):
+    """2-D grid Laplacian + I as COO (tests/test_solver_quant.py:219)."""
+    n = side * side
+    i, j = np.divmod(np.arange(n), side)
+    rows, cols = [np.arange(n)], [np.arange(n)]
+    deg = np.zeros(n)
+    for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        ok = (i + di >= 0) & (i + di < side) & (j + dj >= 0) & (j + dj < side)
+        rows.append(np.arange(n)[ok])
+        cols.append(((i + di) * side + j + dj)[ok])
+        deg += ok
+    vals = [deg + 1.0] + [-np.ones(len(r)) for r in rows[1:]]
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
+
+
+def _csr_both(rows, cols, vals, n):
+    return (CSRGraph.from_edges(rows, cols, vals, n, device=DEV),
+            CSRGraph.from_edges(rows, cols, vals, n, device="cpu"))
+
+
+def _rel_residual(mat: CSRGraph, x: torch.Tensor, b: torch.Tensor) -> float:
+    r = b - spmm_csr(mat, x[:, None])[:, 0]
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+
+
+def agree_solve(name: str, got, want, tol=SV_X_TOL) -> None:
+    """A solve on the card against the same solve on the CPU: iteration
+    counts within one (a norm at the tolerance), the same verdict, x
+    within `tol`."""
+    same_run = abs(got.iterations - want.iterations) <= 1 and got.converged == want.converged
+    say("agree", name=f"{name}: iterations and verdict, card vs CPU",
+        iterations=[got.iterations, want.iterations],
+        converged=[got.converged, want.converged], ok=same_run)
+    if not same_run:
+        raise AssertionError(f"{name}: the card's run differs from the CPU's")
+    agree(f"{name} x", got.x.cpu(), want.x, torch.float32, tol)
+
+
+def phase_solver(graph: NeighborGraph) -> None:
+    """The solvers on the 100k-node graph (`[solver]`, no kernel): the SPD
+    system A = L_w + I of the symmetrised kNN graph (weights times
+    SV_WEIGHT) and a right-hand side from a seed; CG with and without the
+    Jacobi preconditioner, Jacobi and, on A scaled by its largest row sum
+    (rho(I - A) < 1), the Neumann series; forward and backward push,
+    power-iteration and random-walk PPR from node 0 on the kNN graph; the
+    TRUE solver's sketched solve; the orchestrator's dispatch on A (CG)
+    and on the scaled A (Neumann); BMSSP on tests/test_solver_quant.py's
+    grid (the kNN graph's aggregation is reported: it finds no strong
+    connection). Each card result against the same function on the CPU
+    from the same inputs; ms (host clock, synchronised), iterations and
+    the relative residual of each."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    rows, cols, vals, n = spd_system(graph, SV_WEIGHT)
+    rowmax = float(np.max(np.bincount(rows, weights=np.abs(vals), minlength=n)))
+    A, A_c = _csr_both(rows, cols, vals, n)
+    As, As_c = _csr_both(rows, cols, vals / rowmax, n)
+    b_c = torch.from_numpy(np.random.default_rng(5).normal(size=n).astype(np.float32))
+    b, bs_c = b_c.to(DEV), b_c / rowmax
+    bs = bs_c.to(DEV)
+    fields = dict(nnz=len(vals), rowmax=rowmax)
+
+    solves = {
+        "cg": lambda m, ms_, rhs, rhs_s: cg_solve(m, rhs, tolerance=SV_TOL,
+                                                  max_iterations=SV_MAX_ITERS),
+        "cg_jacobi": lambda m, ms_, rhs, rhs_s: cg_solve(
+            m, rhs, tolerance=SV_TOL, max_iterations=SV_MAX_ITERS, use_preconditioner=True),
+        "jacobi": lambda m, ms_, rhs, rhs_s: jacobi_solve(m, rhs, tolerance=SV_TOL,
+                                                          max_iterations=SV_MAX_ITERS),
+        "neumann": lambda m, ms_, rhs, rhs_s: neumann_solve(
+            ms_, rhs_s, tolerance=SV_TOL / rowmax, max_iterations=SV_MAX_ITERS),
+    }
+    for name, solve in solves.items():
+        got = solve(A, As, b, bs)
+        agree_solve(name, got, solve(A_c, As_c, b_c, bs_c))
+        _, ms = _synced_ms(lambda: solve(A, As, b, bs))     # the second call, warm
+        fields[f"{name}_ms"] = round(ms, 3)
+        fields[f"{name}_iterations"] = got.iterations
+        fields[f"{name}_residual"] = _rel_residual(A, got.x, b)
+        if not got.converged:
+            raise AssertionError(f"{name} did not converge on the SPD system")
+    # 20 power iterations stop short of convergence, so the rounding of
+    # each device's sums shows in the estimate: 1e-4 relative (3e-5 read
+    # on an H100)
+    rho, ms = _synced_ms(lambda: estimate_spectral_radius(As))
+    rho_c = estimate_spectral_radius(As_c)
+    say("agree", name="spectral radius of I - A/rowmax: card vs CPU", rho=[rho, rho_c],
+        rtol=1e-4, ok=abs(rho - rho_c) <= 1e-4 * rho_c)
+    if abs(rho - rho_c) > 1e-4 * rho_c:
+        raise AssertionError("the spectral radius on the card differs from the CPU's")
+    fields.update(spectral_radius=rho, spectral_radius_ms=round(ms, 3))
+
+    # PageRank from node 0 on the kNN graph (directed, as built)
+    G = graph.to_csr()
+    G_c = CSRGraph(G.row_ptr.cpu(), G.col_idx.cpu(), G.values.cpu(), G.num_nodes)
+    power, ms = _synced_ms(lambda: ppr_power_iteration(G, 0, 0.15, iters=50))
+    agree("ppr_power_iteration: card vs CPU", power.cpu(),
+          ppr_power_iteration(G_c, 0, 0.15, iters=50), torch.float32)
+    fields["ppr_power_ms"] = round(ms, 3)
+    for name, fn in (("forward_push", forward_push_ppr), ("backward_push", backward_push_ppr)):
+        x, ms = _synced_ms(lambda: fn(G, 0, 0.15, SV_PUSH_EPS, SV_SWEEPS))
+        agree(f"{name}_ppr: card vs CPU", x.cpu(), fn(G_c, 0, 0.15, SV_PUSH_EPS, SV_SWEEPS),
+              torch.float32)
+        fields[f"{name}_ms"] = round(ms, 3)
+        fields[f"{name}_mass"] = float(x.sum())
+    seed0 = torch.zeros(n, device=DEV)
+    seed0[0] = 1.0
+    push_x, _, sweeps = sv_push._push_sweeps(G, seed0, 0.15, SV_PUSH_EPS, SV_SWEEPS)
+    fields.update(forward_push_sweeps=sweeps,
+                  forward_push_l1_to_power=float((push_x - power).abs().sum()))
+    mc, ms = _synced_ms(lambda: random_walk_ppr(G, 0, 0.15, SV_WALKS, SV_WALK_LEN, seed=0))
+    equal_cpu("random_walk_ppr (the same draws)", mc,
+              random_walk_ppr(G_c, 0, 0.15, SV_WALKS, SV_WALK_LEN, seed=0))
+    fields.update(random_walk_ms=round(ms, 3),
+                  random_walk_l1_to_power=float((mc - power).abs().sum()))
+
+    # the TRUE solver's sketched solve (the sketch from its seed: the same
+    # on both devices)
+    ts_, ms = _synced_ms(lambda: TrueSolver(tolerance=0.1).preprocess(A))
+    x_true, ms_solve = _synced_ms(lambda: ts_.solve(A, b))
+    agree_scaled("TrueSolver x: card vs CPU", x_true.cpu(),
+                 TrueSolver(tolerance=0.1).preprocess(A_c).solve(A_c, b_c), torch.float32)
+    fields.update(true_k=ts_._prep[0].shape[0], true_preprocess_ms=round(ms, 3),
+                  true_solve_ms=round(ms_solve, 3), true_residual=_rel_residual(A, x_true, b))
+
+    # the orchestrator: profile, route, solve; the scaled A goes to the
+    # Neumann series (rho(I - A) < 0.95), A itself, whose hubs give it a
+    # rho(I - A) far above 1, to CG
+    for tag, m, m_c, rhs, rhs_c, tol, route in (
+            ("A", A, A_c, b, b_c, SV_TOL, None),
+            ("A_scaled", As, As_c, bs, bs_c, SV_TOL / rowmax, "neumann")):
+        (res, algo), ms = _synced_ms(lambda: SolverOrchestrator().solve(m, rhs, tolerance=tol))
+        res_c, algo_c = SolverOrchestrator().solve(m_c, rhs_c, tolerance=tol)
+        ok = algo == algo_c and route in (None, algo) and res.converged
+        say("agree", name=f"orchestrator on {tag}: card vs CPU", algo=[algo, algo_c], ok=ok)
+        if not ok:
+            raise AssertionError(f"orchestrator on {tag}: {algo} (CPU {algo_c}, expected "
+                                 f"{route}), converged {res.converged}")
+        agree_solve(f"orchestrator {algo} on {tag}", res, res_c)
+        fields[f"orchestrator_{tag}_algo"] = algo
+        fields[f"orchestrator_{tag}_ms"] = round(ms, 3)
+
+    # BMSSP: the AMG V-cycles on the grid; on the kNN system the
+    # aggregation is only counted (every node its own aggregate would make
+    # the coarsest level the whole graph)
+    t0 = time.perf_counter()
+    fields["bmssp_knn_aggregates"] = int(sv_bmssp._coarsen(rows, cols, vals, n).max()) + 1
+    fields["bmssp_knn_aggregate_s"] = round(time.perf_counter() - t0, 3)
+    g_rows, g_cols, g_vals, gn = grid_laplacian(SV_GRID)
+    dense = np.zeros((gn, gn))
+    dense[g_rows, g_cols] = g_vals
+    x_grid = np.random.default_rng(0).normal(size=gn)
+    b_grid = dense @ x_grid
+    amg = BmsspSolver(tolerance=1e-5, max_cycles=SV_AMG_CYCLES, device=DEV).setup(
+        g_rows, g_cols, g_vals, gn)
+    (x_amg, rnorm, cycles), ms = _synced_ms(lambda: amg.solve(b_grid))
+    x_amg_c, _, cycles_c = BmsspSolver(tolerance=1e-5, max_cycles=SV_AMG_CYCLES,
+                                       device="cpu").setup(g_rows, g_cols, g_vals,
+                                                           gn).solve(b_grid)
+    agree("BMSSP x: card vs CPU", x_amg.cpu(), x_amg_c, torch.float32)
+    err = float(np.abs(x_amg.cpu().numpy() - x_grid).max())
+    if abs(cycles - cycles_c) > 1 or err > 5e-3:
+        raise AssertionError(f"BMSSP: cycles {cycles} (CPU {cycles_c}), error {err}")
+    fields.update(bmssp_grid=gn, bmssp_levels=[lv.n for lv in amg._levels], bmssp_cycles=cycles,
+                  bmssp_ms=round(ms, 3), bmssp_residual=rnorm / float(np.linalg.norm(b_grid)),
+                  bmssp_max_err=err)
+
+    if kernels.launch_counts() != before:
+        raise AssertionError("the solvers launched a kernel")
+    say("solver", nodes=n, **fields, kernel_launches=0,
+        seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def local_subgraph(graph: NeighborGraph, nodes: np.ndarray) -> NeighborGraph:
+    """The subgraph induced on `nodes` (host ids), relabelled 0..len-1:
+    neighbors outside it masked out."""
+    pos = np.full(graph.num_nodes, -1, np.int64)
+    pos[nodes] = np.arange(len(nodes))
+    local = pos[graph.nbr_idx.cpu().numpy()[nodes]]
+    inside = (local >= 0) & (graph.nbr_mask.cpu().numpy()[nodes] > 0)
+    w = graph.edge_weight.cpu().numpy()[nodes]
+    return NeighborGraph(torch.from_numpy(np.where(inside, local, 0).astype(np.int32)).to(DEV),
+                         torch.from_numpy(inside.astype(np.float32)).to(DEV),
+                         torch.from_numpy(np.where(inside, w, 0.0).astype(np.float32)).to(DEV))
+
+
+def mutual_graph(graph: NeighborGraph) -> NeighborGraph:
+    """The mutual kNN graph: edge (i, j) where j is among i's neighbors
+    and i among j's. Symmetric, so the diffusion conserves mass."""
+    idx = graph.nbr_idx.long()
+    rows = torch.arange(graph.num_nodes, device=idx.device)[:, None, None]
+    back = (graph.nbr_idx[idx] == rows).any(-1).to(graph.nbr_mask.dtype)
+    return NeighborGraph(graph.nbr_idx, graph.nbr_mask * back, graph.edge_weight)
+
+
+def _graph_cpu(graph: NeighborGraph) -> NeighborGraph:
+    return NeighborGraph(graph.nbr_idx.cpu(), graph.nbr_mask.cpu(), graph.edge_weight.cpu())
+
+
+def equal_up_to_ties(name: str, got, want, margin, tol: float) -> int:
+    """Boolean outputs of the card against the CPU's: equal except where
+    the quantity they threshold lies within `tol` of the threshold
+    (`margin`, on the CPU), where the two devices' roundings may fall on
+    either side. Returns the count of such ties."""
+    differ = (got.cpu() != want.cpu())
+    ties = int(differ.sum())
+    ok = bool((margin[differ] < tol).all())
+    say("equal", name=f"{name}: card vs CPU up to ties", differ=ties, tie_tol=tol, ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: the card differs from the CPU away from the threshold")
+    return ties
+
+
+def phase_graph_transformer_rest(feats: torch.Tensor, graph: NeighborGraph,
+                                 local_nodes: np.ndarray, d: int, heads: int) -> None:
+    """The rest of the graph transformers on the 100k-node graph
+    (`[graph_transformer_rest]`, no kernel), seed-0 weights on the card:
+    the 2-layer graph transformer block; LSH attention over the first
+    GT_ROWS rows and PPR-sampled attention for GT_QUERIES query nodes;
+    the Hamiltonian net (leapfrog, autograd forces) and the conservative
+    PDE on the mutual kNN graph; spiking attention, STDP and Oja; the
+    morphogenetic field, growth and coarsening; Ollivier-Ricci curvature
+    and its routing on the graph-local GT_ROWS-node subgraph, geodesic
+    message passing, Riemannian Adam; causal attention over GT_SEQ rows
+    and Granger causality; Shapley and Nash attention and the incentive
+    step; GT_TRAIN_STEPS verified Adam steps of the block on the local
+    subgraph and its sealed certificate. Functions without a graph take
+    the JAX tests' shapes or the features' rows. Each card output against
+    the same function on the CPU (float32 limits; PPR on its first
+    GT_CPU_QUERIES queries); ms are medians of 5 calls (CUDA events) or
+    one synchronised call (host loops)."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    n = graph.num_nodes
+    feats_c, graph_c = feats.cpu(), _graph_cpu(graph)
+    local = local_subgraph(graph, local_nodes)
+    local_c = _graph_cpu(local)
+    x_loc = feats[torch.from_numpy(local_nodes).to(DEV)]
+    fields = {}
+
+    # the transformer block: 2 pre-norm layers of edge-featured attention
+    # (the edge weight as its 1-d feature) and a tanh-GELU FFN
+    bcfg = GraphTransformerConfig(dim=d, num_heads=heads, num_layers=2)
+    bp = graph_transformer_init(0, bcfg, device=DEV)
+    agree_cpu("graph_transformer_apply 2 layers", graph_transformer_apply(bp, bcfg, feats, graph),
+              graph_transformer_apply(_tree_cpu(bp), bcfg, feats_c, graph_c))
+    fields["block_ms"] = time_ms(lambda: graph_transformer_apply(bp, bcfg, feats, graph), iters=5)
+
+    # LSH buckets on features and planes in steps of 1/16, whose products
+    # and sums are exact in float32 in any order: the bucket bits are the
+    # same on both devices (a dot product of float features near 0 may
+    # fall on either side)
+    x_lsh = torch.clamp(torch.round(feats[:GT_ROWS] * 16), -128, 127) / 16
+    planes = torch.clamp(torch.round(lsh_planes(d, 4) * 16), -64, 63) / 16
+    scfg = SublinearConfig(num_hashes=4, ppr_top_k=32)
+    equal_cpu("lsh_bucket_assignments", lsh_bucket_assignments(x_lsh, 4, planes=planes),
+              lsh_bucket_assignments(x_lsh.cpu(), 4, planes=planes))
+    agree_cpu(f"lsh_bucket_attention N={GT_ROWS}", lsh_bucket_attention(x_lsh, scfg, planes),
+              lsh_bucket_attention(x_lsh.cpu(), scfg, planes))
+    fields["lsh_ms"] = time_ms(lambda: lsh_bucket_attention(x_lsh, scfg, planes), iters=5)
+    csr = graph.to_csr()
+    csr_c = CSRGraph(csr.row_ptr.cpu(), csr.col_idx.cpu(), csr.values.cpu(), n)
+    queries = np.random.default_rng(1).choice(n, GT_QUERIES, replace=False)
+    ppr_out, ms = _synced_ms(lambda: ppr_sampled_attention(feats, csr, queries, scfg))
+    agree_cpu(f"ppr_sampled_attention, first {GT_CPU_QUERIES} queries",
+              ppr_out[:GT_CPU_QUERIES],
+              ppr_sampled_attention(feats_c, csr_c, queries[:GT_CPU_QUERIES], scfg))
+    fields["ppr_attention_ms"] = round(ms, 3)
+
+    # physics: leapfrog on the kNN graph from q = 0.1 x, p = 0 (the CPU
+    # repeats it on the graph-local subgraph: a full-width step takes it
+    # seconds); the PDE on the mutual graph
+    net = HamiltonianGraphNet(PhysicsConfig(dt=0.01))
+    q0, p0 = net.init_state(0.1 * feats)
+    e0 = float(hamiltonian(q0, p0, graph, net.config))
+    (q1, p1, energies), ms = _synced_ms(lambda: net.forward(q0, p0, graph, steps=GT_LEAPFROG))
+    drift = abs(float(energies[-1]) - e0) / abs(e0)
+    if drift >= 1e-3 or not bool(torch.isfinite(q1).all()):
+        raise AssertionError(f"leapfrog energy drift {drift}")
+    ql, pl = net.init_state(0.1 * x_loc)
+    ql1, pl1, el = net.forward(ql, pl, local, steps=GT_LEAPFROG)
+    ql1_c, pl1_c, el_c = net.forward(ql.cpu(), pl.cpu(), local_c, steps=GT_LEAPFROG)
+    agree_cpu(f"Hamiltonian net q after {GT_LEAPFROG} steps, N={len(local_nodes)}", ql1, ql1_c)
+    agree_cpu(f"Hamiltonian net p after {GT_LEAPFROG} steps, N={len(local_nodes)}", pl1, pl1_c)
+    agree_scaled("Hamiltonian energies: card vs CPU", el.cpu(), el_c, torch.float32)
+    fields.update(leapfrog_ms=round(ms, 3), energy_drift=drift)
+    mutual = mutual_graph(graph)
+    pde_args = dict(diffusion=0.1, dt=0.1, steps=5)
+    (pde, mass_drift) = conservative_pde_attention(feats, mutual, **pde_args)
+    pde_c, _ = conservative_pde_attention(feats_c, _graph_cpu(mutual), **pde_args)
+    agree_cpu("conservative_pde_attention (mutual kNN graph)", pde, pde_c)
+    rel_mass = abs(float(mass_drift)) / float(feats.abs().sum())
+    if rel_mass >= 1e-6:
+        raise AssertionError(f"the PDE moved the mass by {rel_mass} of sum|x|")
+    fields.update(pde_ms=time_ms(lambda: conservative_pde_attention(feats, mutual, **pde_args),
+                                 iters=5),
+                  pde_mass_drift=rel_mass, mutual_edges=int(mutual.nbr_mask.sum()))
+
+    # biological: spiking attention (the JAX test's threshold), one STDP
+    # step on the kNN graph's weights, 200 Oja steps (the JAX test's shape)
+    spk = SpikingGraphAttention(BiologicalConfig(threshold=0.5))
+    agg, counts, v = spk.forward(feats, graph, steps=GT_SPIKE_STEPS)
+    agg_c, counts_c, v_c = spk.forward(feats_c, graph_c, steps=GT_SPIKE_STEPS)
+    equal_cpu("spiking attention spike counts", counts, counts_c)
+    agree_cpu("spiking attention aggregate", agg, agg_c)
+    agree_cpu("spiking attention potentials", v, v_c)
+    fields.update(spiking_ms=time_ms(lambda: spk.forward(feats, graph, steps=GT_SPIKE_STEPS),
+                                     iters=5), spikes=float(counts.sum()))
+    gen = torch.Generator().manual_seed(3)
+    pre_s, post_s = ((torch.rand(n, generator=gen) < 0.1).float() for _ in range(2))
+    trace = torch.rand(n, generator=gen)
+    w0 = torch.clamp(graph.edge_weight, 0.0, 1.0)
+    stdp = lambda g, w, *a: stdp_update(w, *a, g)  # noqa: E731
+    agree_cpu("stdp_update", stdp(graph, w0, trace.to(DEV), trace.to(DEV), pre_s.to(DEV),
+                                  post_s.to(DEV))[0],
+              stdp(graph_c, w0.cpu(), trace, trace, pre_s, post_s)[0])
+    pre = torch.from_numpy(np.random.default_rng(0).normal(size=8).astype(np.float32))
+
+    def oja(vec):
+        w = torch.zeros((8, 8), device=vec.device)
+        for _ in range(200):
+            w = hebbian_update(w, vec, vec, rule="oja", lr=0.05)
+        return w
+
+    agree_cpu("hebbian_update oja, 200 steps", oja(pre.to(DEV)), oja(pre))
+    kwta = torch.tensor([0.1, 3.0, 2.0, 5.0])
+    equal_cpu("k_winners_take_all", k_winners_take_all(kwta.to(DEV), torch.ones(4, device=DEV), 2),
+              k_winners_take_all(kwta, torch.ones(4), 2))
+
+    # self-organizing: the field, growth from its scores, coarsening
+    field = MorphogeneticField()
+    a0, b0 = field.init_state(n, seed=0, device=DEV)
+    (a1, b1, scores), ms = _synced_ms(lambda: field.step(a0, b0, graph, steps=GT_MORPH_STEPS))
+    a1_c, b1_c, _ = field.step(a0.cpu(), b0.cpu(), graph_c, steps=GT_MORPH_STEPS)
+    agree_cpu("morphogenetic field a", a1, a1_c)
+    agree_cpu("morphogenetic field b", b1, b1_c)
+    prog = DevelopmentalProgram(max_growth_budget=64, threshold=0.2)
+    grown = prog.grow(graph, scores)
+    equal_cpu("developmental growth (the card's scores)", torch.from_numpy(grown.new_edges),
+              torch.from_numpy(prog.grow(graph_c, scores.cpu()).new_edges))
+    coarsened, ms_coarsen = _synced_ms(lambda: GraphCoarsener().coarsen(graph, feats))
+    coarsened_c = GraphCoarsener().coarsen(graph_c, feats_c)
+    equal_cpu("coarsening aggregates", torch.from_numpy(coarsened.agg),
+              torch.from_numpy(coarsened_c.agg))
+    agree_cpu("coarse features", coarsened.coarse_features, coarsened_c.coarse_features)
+    fields.update(morphogenetic_ms=round(ms, 3), grown_edges=grown.budget_used,
+                  coarsen_ms=round(ms_coarsen, 3), coarse_nodes=coarsened.num_coarse)
+
+    # manifold: curvature on the graph-local subgraph and its routing,
+    # geodesic message passing inside the ball, Riemannian Adam
+    kappa = estimate_ollivier_ricci(local)
+    agree_cpu(f"estimate_ollivier_ricci N={len(local_nodes)}", kappa,
+              estimate_ollivier_ricci(local_c))
+    router = CurvatureAdaptiveRouter()
+    agree_cpu("curvature routing", router.route_batch(kappa), router.route_batch(kappa.cpu()))
+    fields.update(ricci_ms=time_ms(lambda: estimate_ollivier_ricci(local), iters=5),
+                  mean_curvature=float(kappa.mean()),
+                  local_edges=int(local.nbr_mask.sum()))
+    x_ball = 0.5 * feats / float(torch.linalg.vector_norm(feats, dim=-1).max())
+    agree_cpu("geodesic_message_passing", geodesic_message_passing(x_ball, graph),
+              geodesic_message_passing(x_ball.cpu(), graph_c))
+    fields["geodesic_ms"] = time_ms(lambda: geodesic_message_passing(x_ball, graph), iters=5)
+
+    def radam(dev):
+        target = torch.tensor([[0.3, 0.2]], device=dev)
+        params = {"z": torch.tensor([[-0.4, 0.1]], device=dev)}
+        state = riemannian_adam_init(params)
+        for _ in range(100):
+            z = params["z"].clone().requires_grad_(True)
+            torch.sum(poincare_distance(z, target) ** 2).backward()
+            params, state = riemannian_adam_update(params, {"z": z.grad}, state, lr=0.05)
+        return params["z"]
+
+    agree_cpu("riemannian_adam 100 steps", radam(DEV), radam("cpu"))
+
+    # temporal: causal attention over the first GT_SEQ rows; Granger on
+    # the JAX test's series
+    seq = feats[:GT_SEQ]
+    t_out, t_w = temporal_attention(seq)
+    t_out_c, t_w_c = temporal_attention(seq.cpu())
+    agree_cpu(f"temporal_attention T={GT_SEQ}", t_out, t_out_c)
+    agree_cpu(f"temporal_attention weights T={GT_SEQ}", t_w, t_w_c)
+    if not verify_causal_ordering(t_w):
+        raise AssertionError("temporal attention moved mass from the future")
+    fields["temporal_ms"] = time_ms(lambda: temporal_attention(seq), iters=5)
+    rng = np.random.default_rng(42)
+    xs = rng.normal(size=400).astype(np.float32)
+    ys = np.zeros(400, np.float32)
+    for i in range(2, 400):
+        ys[i] = 0.8 * xs[i - 2] + 0.1 * rng.normal()
+    ratio, causal = granger_causality(torch.from_numpy(xs).to(DEV), torch.from_numpy(ys))
+    ratio_c, causal_c = granger_causality(xs, ys)
+    say("agree", name="granger_causality: card vs CPU", ratio=[ratio, ratio_c],
+        ok=causal and causal_c and abs(ratio - ratio_c) <= 1e-3 * ratio_c)
+    if not (causal and causal_c and abs(ratio - ratio_c) <= 1e-3 * ratio_c):
+        raise AssertionError("granger_causality: the card's ratio differs from the CPU's")
+    fields["granger_ratio"] = ratio
+
+    # economic: Shapley over GT_SHAPLEY_N rows (permutations from a seed,
+    # the same on both devices), Nash over GT_NASH_N rows, the incentive
+    # step on the whole graph
+    xs_n = feats[:GT_SHAPLEY_N]
+    query = xs_n[3] + 0.01 * torch.randn(d, generator=torch.Generator().manual_seed(4)).to(DEV)
+    perms = shapley_permutations(GT_SHAPLEY_N, GT_SHAPLEY_P, seed=0)
+    phi = shapley_attention(xs_n, query, perms)
+    agree_cpu("shapley_attention", phi, shapley_attention(xs_n.cpu(), query.cpu(), perms))
+    full = eco_coalition_value(xs_n, query, torch.ones(GT_SHAPLEY_N, device=DEV))
+    if abs(float(phi.sum()) - float(full)) > 1e-3:
+        raise AssertionError("Shapley values miss efficiency: sum(phi) != v(all) - v(empty)")
+    fields["shapley_ms"] = time_ms(lambda: shapley_attention(xs_n, query, perms), iters=5)
+    xn = feats[:GT_NASH_N]
+    stakes = torch.ones(GT_NASH_N, device=DEV)
+    alloc, payoffs = nash_attention(xn, stakes)
+    alloc_c, payoffs_c = nash_attention(xn.cpu(), stakes.cpu())
+    agree_cpu("nash_attention allocation", alloc, alloc_c)
+    agree_scaled("nash_attention payoffs: card vs CPU", payoffs.cpu(), payoffs_c, torch.float32)
+    fields["nash_ms"] = time_ms(lambda: nash_attention(xn, stakes), iters=5)
+    state = IncentiveState(stakes=torch.ones(n, device=DEV))
+    cons, new_state, slashed = incentive_aligned_step(feats, graph.nbr_idx, graph.nbr_mask, state)
+    cons_c, _, slashed_c = incentive_aligned_step(feats_c, graph_c.nbr_idx, graph_c.nbr_mask,
+                                                  IncentiveState(stakes=torch.ones(n)))
+    agree_cpu("incentive consensus", cons, cons_c)
+    dev_c = torch.linalg.vector_norm(feats_c - cons_c, dim=-1)
+    thr = torch.mean(dev_c) + 2.0 * torch.std(dev_c, correction=0)
+    equal_up_to_ties("incentive slashing", slashed, slashed_c, (dev_c - thr).abs() / thr, 1e-5)
+    fields.update(incentive_ms=time_ms(lambda: incentive_aligned_step(
+        feats, graph.nbr_idx, graph.nbr_mask, state), iters=5), slashed=int(slashed.sum()))
+
+    # verified training: GT_TRAIN_STEPS Adam steps of the block on the
+    # local subgraph (its features reconstructed), then the certificate
+    def trainer(dev, g):
+        def loss(p, batch):
+            return torch.mean((graph_transformer_apply(p, bcfg, batch, g) - batch) ** 2)
+
+        invs = [LossStabilityBound(), WeightNormBound(), LipschitzBound(tolerance=1e4),
+                EnergyGateInvariant()]
+        return VerifiedTrainer(loss, adam(1e-3), graph_transformer_init(0, bcfg, device=dev),
+                               invs)
+
+    vt, vt_c = trainer(DEV, local), trainer("cpu", local_c)
+    steps_ms = []
+    for _ in range(GT_TRAIN_STEPS):
+        r, ms = _synced_ms(lambda: vt.train_step(x_loc))
+        r_c = vt_c.train_step(x_loc.cpu())
+        steps_ms.append(round(ms, 3))
+        same = (r.committed and r_c.committed and abs(r.loss - r_c.loss) <= 1e-4 * abs(r_c.loss)
+                and all(c.passed == cc.passed for c, cc in zip(r.checks, r_c.checks)))
+        say("agree", name=f"verified step {r.step}: card vs CPU", loss=[r.loss, r_c.loss],
+            committed=[r.committed, r_c.committed], ok=same)
+        if not same:
+            raise AssertionError("verified training: the card's step differs from the CPU's")
+    # Adam's first steps are +-lr wherever a gradient is far above eps: an
+    # entry whose gradient is rounding noise on one device may step the
+    # other way, by at most 2 lr a step
+    for got, want in zip(sorted_leaves(vt.params), sorted_leaves(vt_c.params)):
+        agree("verified weights: card vs CPU", got.cpu(), want, torch.float32,
+              (2e-3 * GT_TRAIN_STEPS, 1e-6))
+    cert, cert_again = vt.seal(), vt.seal()
+    flat = np.concatenate([t.cpu().numpy().ravel() for t in sorted_leaves(vt.params)])
+    sealed = (cert == cert_again and cert.committed_steps == GT_TRAIN_STEPS
+              and cert.final_weights_hash == hashlib.sha256(flat.tobytes()).hexdigest())
+    say("agree", name="verified certificate", steps=cert.steps,
+        committed=cert.committed_steps, violations=cert.total_violations,
+        chain_equal_cpu=cert.chain_hash == vt_c.seal().chain_hash, ok=sealed)
+    if not sealed:
+        raise AssertionError("the verified certificate is not the sealed weights' hash")
+    fields.update(verified_step_ms=steps_ms, verified_losses=[r.loss for r in vt.step_results])
+
+    if kernels.launch_counts() != before:
+        raise AssertionError("the graph transformers launched a kernel")
+    say("graph_transformer_rest", nodes=n, d=d, heads=heads, **fields, kernel_launches=0,
+        seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def phase_contrastive(params, cfg, feats, graph) -> None:
     """The RuvectorLayer's contrastive train step (TrainConfig defaults:
     batch 256, 64 negatives, tau 0.07) with Adam (lr 1e-3) on the 100k-node
@@ -2054,6 +2718,7 @@ def train_report(c5: dict, halo: dict, gparams, gcfg) -> list:
                  lambda: block_gate_signature_reference(q, k, hpad, eps=gcfg.eps, scale=scale),
                  agree_rows, bound(nbytes(q, k, hpad) + sig_out, {"f64": 2 * hn * hb * d}),
                  {"shape": f"halo layout: nB={hx.shape[0]}, B={hb}, q/k bf16",
+                  "body": sig_body(hb, q.dtype == torch.bfloat16),
                   "path": OFF_PATH["block_gate_signature"]}))
     return rows
 
@@ -3263,6 +3928,8 @@ def main() -> int:
     say("ruvector_net", layers=2, nodes=N_NODES, d=d, heads=heads, finite=True)
     phase_gnn_family(feats, graph, d, heads)
     phase_attention_rest(feats, graph, d)
+    phase_solver(graph)
+    phase_graph_transformer_rest(feats, graph, perm[:GT_ROWS], d, heads)
 
     # --- config 5: the gated graph transformer's serving path ---------------
     with torch.no_grad():
@@ -3396,5 +4063,31 @@ def main() -> int:
     return 0
 
 
+# the phases that run alone (`python3 chip_smoke.py solver
+# graph_transformer_rest`): plain PyTorch on the 100k-node graph, no kernel
+# build, for iterating on them without the whole script
+PHASES_ALONE = ("solver", "graph_transformer_rest")
+
+
+def phases_alone(names: list[str]) -> int:
+    """Only the named phases of PHASES_ALONE, on the main path's graph."""
+    unknown = sorted(set(names) - set(PHASES_ALONE))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; these run alone: "
+                         f"{', '.join(PHASES_ALONE)}")
+    phase_device()
+    d, k, heads = 128, 16, 4
+    feats_np = bench_features(N_NODES, d)
+    graph = build_knn_graph(feats_np, k=k, block=2048, device=DEV)
+    perm, _ = graph_grow_blocks(graph.nbr_idx.cpu().numpy(), graph.nbr_mask.cpu().numpy(),
+                                leaf_size=512)
+    if "solver" in names:
+        phase_solver(graph)
+    if "graph_transformer_rest" in names:
+        phase_graph_transformer_rest(torch.from_numpy(feats_np).to(DEV), graph,
+                                     perm[:GT_ROWS], d, heads)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phases_alone(sys.argv[1:]) if sys.argv[1:] else main())

@@ -21,12 +21,14 @@
 // at config 5's shape).
 //
 // Design: a persistent grid, one block of 256 threads per partition at a
-// time. K6c and K6b at bf16 compute and B <= 256 (tc_signature_kernel)
-// keep the partition on chip: LN(x) (K6c) or x (K6b) as bf16 rows, A_sig^T
-// and Q in shared memory, the products on the float64 tensor cores
-// (gated_f64tc.cuh), the row sums taken from the registers. The other
-// cases (K6c and K6b at float32 compute or B > 256, and K6a) run
-// block_gemm with float64 FMA on the CUDA cores
+// time. At bf16 compute and B <= 256 (tc_signature_kernel) the partition
+// stays on chip: LN(x) (K6c) or x (K6b) as bf16 rows beside A_sig^T and Q
+// in shared memory, or, for K6a, bf16 q and k rows (q is Q already, so the
+// Q pass is skipped); the products on the float64 tensor cores
+// (gated_f64tc.cuh), the row sums taken from the registers. K6a's bf16
+// products are exact in float64 and its sums of D <= 128 terms exact, so
+// its counts equal the plain version's as K6c's do. The other cases (float32
+// compute, B > 256) run block_gemm with float64 FMA on the CUDA cores
 // and keep the block's [B, D] normalized rows, [B, D] projected rows and
 // [B, B] logits in its slice of a global scratch buffer. Each row's
 // reduction has a fixed order, so runs repeat bit for bit. block_gemm's
@@ -101,62 +103,91 @@ __device__ void x_rows_bf16(const XT* __restrict__ x, bf16* H, int B, int Bp) {
   __syncthreads();
 }
 
-// The float64 tensor-core body of K6c (LN_X) and K6b (X) (bf16 compute,
-// B <= 256): per partition the block reads x once and writes LN(x) (K6c)
-// or x (K6b), rounded to bf16, into H in shared memory beside A_sig^T
-// (bf16, staged once per block). Warp w owns
-// the 32-row strip [32 w, 32 w + 32): Q = H A_sig on the DMMAs (2x4 tiles
-// of 16x8 per pass), each value rounded once to float32, then to bf16, into
-// the warp's strip of Q in shared memory; then S = Q H^T, 32 columns a
-// pass, whose positive valid entries the lanes sum (float64) and count
-// while they are still in registers. Nothing but the row sums and counts
-// goes to global memory. F32ACC (a test-only fault) rounds every sum to
-// float32 as it goes.
+// bf16 rows as given into the bf16 rows of H [Bp, D] in shared memory,
+// rows [B, Bp) zero: K6a's q and k. 16 bytes a thread at a time where the
+// rows are 16-byte aligned. Ends with a barrier.
 template <int D>
+__device__ void copy_rows_bf16(const bf16* __restrict__ x, bf16* H, int B, int Bp) {
+  if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const int n = B * D / 8, np = Bp * D / 8;
+    const uint4* src = reinterpret_cast<const uint4*>(x);
+    uint4* dst = reinterpret_cast<uint4*>(H);
+    for (int i = threadIdx.x; i < np; i += kThreads)
+      dst[i] = i < n ? src[i] : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    for (int i = threadIdx.x; i < Bp * D; i += kThreads)
+      H[i] = i < B * D ? x[i] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+}
+
+// The float64 tensor-core body (bf16 compute, B <= 256) of K6c (LN_X),
+// K6b (X) and K6a (QK). K6c and K6b: per partition the block reads x once
+// and writes LN(x) (K6c) or x (K6b), rounded to bf16, into H in shared
+// memory beside A_sig^T (bf16, staged once per block); warp w owns the
+// 32-row strip [32 w, 32 w + 32): Q = H A_sig on the DMMAs (2x4 tiles of
+// 16x8 per pass), each value rounded once to float32, then to bf16, into
+// the warp's strip of Q in shared memory. K6a reads its bf16 q into Q and
+// k into H, and has no A_sig. Then S = Q H^T, 32 columns a pass (K6a: each
+// float64 sum rounded once to float32, then times scale in float32, as the
+// plain version), whose positive valid entries the lanes sum (float64) and
+// count while they are still in registers. Nothing but the row sums and
+// counts goes to global memory. F32ACC (a test-only fault) rounds every
+// sum to float32 as it goes.
+template <int D, int MODE>
 constexpr size_t tc_sig_smem(int bp) {
-  return (size_t)(2 * bp * D + D * D) * sizeof(bf16) + (size_t)bp * sizeof(float);
+  return (size_t)(2 * bp * D + (MODE == kQK ? 0 : D * D)) * sizeof(bf16) +
+         (size_t)bp * sizeof(float);
 }
 
 template <int D, typename XT, bool F32ACC, int MODE>
 __global__ void __launch_bounds__(kThreads) tc_signature_kernel(const SigArgs a) {
-  static_assert(MODE == kLnX || MODE == kX, "the tensor-core body takes K6c and K6b");
+  static_assert(MODE != kQK || sizeof(XT) == sizeof(bf16), "K6a's tensor-core body takes bf16");
   extern __shared__ uint4 smem_raw[];
   const int b = a.b, bp = (b + 31) & ~31;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   bf16* H = reinterpret_cast<bf16*>(smem_raw);
   bf16* Q = H + (size_t)bp * D;
   bf16* At = Q + (size_t)bp * D;
-  float* pad = reinterpret_cast<float*>(At + D * D);
-  for (int i = threadIdx.x; i < D * D; i += kThreads) {
-    const int n = i / D, k = i % D;
-    At[i] = __float2bfloat16(a.A_sig[(size_t)k * D + n]);
+  float* pad = reinterpret_cast<float*>(At + (MODE == kQK ? 0 : D * D));
+  if constexpr (MODE != kQK) {
+    for (int i = threadIdx.x; i < D * D; i += kThreads) {
+      const int n = i / D, k = i % D;
+      At[i] = __float2bfloat16(a.A_sig[(size_t)k * D + n]);
+    }
   }
   for (int k = blockIdx.x; k < a.nb; k += gridDim.x) {
-    __syncthreads();  // the previous partition's H and pad are no longer read
+    __syncthreads();  // the previous partition's H, Q and pad are no longer read
     for (int i = threadIdx.x; i < bp; i += kThreads)
       pad[i] = i < b ? a.pad[(size_t)k * b + i] : 0.f;
     const XT* xk = static_cast<const XT*>(a.x) + (size_t)k * b * D;
-    if constexpr (MODE == kLnX)
+    if constexpr (MODE == kLnX) {
       ln_rows_bf16<D>(xk, H, a.gamma, a.beta, b, bp, 1e-5f);
-    else
+    } else if constexpr (MODE == kX) {
       x_rows_bf16<D>(xk, H, b, bp);
+    } else {
+      copy_rows_bf16<D>(static_cast<const bf16*>(a.k) + (size_t)k * b * D, H, b, bp);
+      copy_rows_bf16<D>(reinterpret_cast<const bf16*>(xk), Q, b, bp);
+    }
     const int r0 = 32 * warp;
     if (r0 >= b) continue;
     double acc[2][4][4];  // 2 x 4 tiles of 16x8: rows r0 + 16 i + 8 h + g
-    for (int n0 = 0; n0 < D; n0 += 32) {
-      zero_tiles(acc);
-      f64_mma_tiles<2, 4, F32ACC>(acc, H + (size_t)r0 * D, D, At + (size_t)n0 * D, D, D);
+    if constexpr (MODE != kQK) {
+      for (int n0 = 0; n0 < D; n0 += 32) {
+        zero_tiles(acc);
+        f64_mma_tiles<2, 4, F32ACC>(acc, H + (size_t)r0 * D, D, At + (size_t)n0 * D, D, D);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(Q + (size_t)(r0 + 16 * i + 8 * h + g) * D + n0 +
-                                               8 * j + 2 * t) =
-                __floats2bfloat162_rn((float)acc[i][j][2 * h], (float)acc[i][j][2 * h + 1]);
+            for (int j = 0; j < 4; ++j)
+              *reinterpret_cast<__nv_bfloat162*>(Q + (size_t)(r0 + 16 * i + 8 * h + g) * D +
+                                                 n0 + 8 * j + 2 * t) =
+                  __floats2bfloat162_rn((float)acc[i][j][2 * h], (float)acc[i][j][2 * h + 1]);
+      }
+      __syncwarp();
     }
-    __syncwarp();
     double rs[4] = {0.0, 0.0, 0.0, 0.0};  // rows r0 + 8 ri + g, ri = 2 i + h
     float rc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int c0 = 0; c0 < bp; c0 += 32) {
@@ -170,7 +201,8 @@ __global__ void __launch_bounds__(kThreads) tc_signature_kernel(const SigArgs a)
           if (!(pad[c] > 0.f)) continue;
 #pragma unroll
           for (int ri = 0; ri < 4; ++ri) {
-            const float v = (float)acc[ri / 2][j][2 * (ri % 2) + e];
+            float v = (float)acc[ri / 2][j][2 * (ri % 2) + e];
+            if constexpr (MODE == kQK) v = __fmul_rn(v, a.scale);
             if (v > a.eps) {
               rs[ri] += v;
               rc[ri] += 1.f;
@@ -199,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) tc_signature_kernel(const SigArgs a)
 template <int MODE, int D, typename XT, bool F32ACC = false>
 int run_tc(const SigArgs& a, int grid, cudaStream_t s) {
   auto kernel = tc_signature_kernel<D, XT, F32ACC, MODE>;
-  const size_t smem = tc_sig_smem<D>((a.b + 31) & ~31);
+  const size_t smem = tc_sig_smem<D, MODE>((a.b + 31) & ~31);
   if (const int rc = allow_smem(kernel, smem)) return rc;
   const int g = resident_grid(kernel, grid, smem);
   kernel<<<g, kThreads, smem, s>>>(a);
@@ -230,19 +262,28 @@ int run_types(const SigArgs& a, int grid, int x_bf16, int compute_bf16, cudaStre
 }
 
 // The tensor-core body (tensor_core: bf16 compute, b <= 256, no scratch)
-// or block_gemm's; variant 1 (the tensor-core body at D = 128 on float32 x
-// only) is the test-only fault F32ACC.
+// or block_gemm's; variant 1 (the tensor-core body at D = 128, on float32
+// x for K6c and K6b, on bf16 q and k for K6a) is the test-only fault
+// F32ACC. K6a's compute type is its inputs' (q and k used as given).
 template <int MODE>
 int run_sig(const SigArgs& a, int grid, int x_bf16, int compute_bf16, int tensor_core,
             int variant, cudaStream_t s) {
+  constexpr bool kQKMode = MODE == kQK;
   if (tensor_core && (!compute_bf16 || a.b > kDmmaMaxB)) return (int)cudaErrorInvalidValue;
-  if (variant != 0 && !(variant == 1 && tensor_core && a.d == 128 && !x_bf16))
+  if (variant != 0 && !(variant == 1 && tensor_core && a.d == 128 && (x_bf16 != 0) == kQKMode))
     return (int)cudaErrorInvalidValue;
-  if (variant == 1) return run_tc<MODE, 128, float, true>(a, grid, s);
-  if (tensor_core)
-    return x_bf16 ? run_tc_width<MODE, __nv_bfloat16>(a, grid, s)
-                  : run_tc_width<MODE, float>(a, grid, s);
-  return run_types<MODE>(a, grid, x_bf16, compute_bf16, s);
+  if constexpr (kQKMode) {
+    if (variant == 1) return run_tc<MODE, 128, __nv_bfloat16, true>(a, grid, s);
+    if (tensor_core) return run_tc_width<MODE, __nv_bfloat16>(a, grid, s);
+    return x_bf16 ? run<MODE, __nv_bfloat16, false>(a, grid, s)
+                  : run<MODE, float, false>(a, grid, s);
+  } else {
+    if (variant == 1) return run_tc<MODE, 128, float, true>(a, grid, s);
+    if (tensor_core)
+      return x_bf16 ? run_tc_width<MODE, __nv_bfloat16>(a, grid, s)
+                    : run_tc_width<MODE, float>(a, grid, s);
+    return run_types<MODE>(a, grid, x_bf16, compute_bf16, s);
+  }
 }
 
 bool shape_ok(int b, int d) { return b >= 1 && b <= kMaxB && width_ok(d); }
@@ -277,15 +318,16 @@ extern "C" int block_gate_signature_x(const void* x, const void* pad, const void
                      static_cast<cudaStream_t>(stream));
 }
 
-// q and k share one type (float32 or bf16)
+// K6a: q and k share one type (float32 or bf16), which is its compute
+// type; tensor_core and variant as run_sig says.
 extern "C" int block_gate_signature(const void* q, const void* pad, const void* k, void* rsum,
                                     void* rcnt, void* scratch, int nb, int b, int d, int grid,
-                                    int qk_bf16, float eps, float scale, void* stream) {
+                                    int qk_bf16, int tensor_core, int variant, float eps,
+                                    float scale, void* stream) {
   if (!shape_ok(b, d)) return (int)cudaErrorInvalidValue;
   SigArgs a{q, k, static_cast<const float*>(pad), nullptr, nullptr, nullptr,
             static_cast<float*>(rsum), static_cast<float*>(rcnt),
             static_cast<float*>(scratch), nb, b, d, eps, scale};
-  auto s = static_cast<cudaStream_t>(stream);
-  return qk_bf16 ? run<kQK, __nv_bfloat16, false>(a, grid, s)
-                 : run<kQK, float, false>(a, grid, s);
+  return run_sig<kQK>(a, grid, qk_bf16, qk_bf16, tensor_core, variant,
+                      static_cast<cudaStream_t>(stream));
 }

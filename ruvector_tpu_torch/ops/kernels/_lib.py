@@ -43,7 +43,7 @@ SIGNATURES = {
     "gated_block_attn": {
         "block_gate_signature_ln_x": [_P] * 8 + [_I] * 8 + [_F, _P],
         "block_gate_signature_x": [_P] * 6 + [_I] * 8 + [_F, _P],
-        "block_gate_signature": [_P] * 6 + [_I] * 5 + [_F, _F, _P],
+        "block_gate_signature": [_P] * 6 + [_I] * 7 + [_F, _F, _P],
     },
     "mincut_gate_block": {
         "mincut_gate_block_from_x": [_P] * 10 + [_I] * 8 + [_F, _F, _P],

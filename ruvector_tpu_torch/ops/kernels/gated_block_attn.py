@@ -215,18 +215,19 @@ def persistent_grid(device: torch.device, nb: int, per_sm: int) -> int:
 
 SIG_CTAS_PER_SM = 2
 DMMA_MAX_B = 256  # the largest partition of the float64 tensor-core bodies (kDmmaMaxB)
-# K6c's and K6b's test-only variants of the tensor-core body
+# K6c's, K6b's and K6a's test-only variants of the tensor-core body
 # (csrc/gated_block_attn.cu), faults that the card tests and chip_smoke.py's
-# controls must reject; built for D = 128 on float32 x only
+# controls must reject; built for D = 128 only, on float32 x (K6c, K6b) or
+# bf16 q and k (K6a)
 SIG_VARIANTS = {"exact": 0, "f32_acc": 1}
 
 
 def sig_body(b: int, compute_bf16: bool) -> str:
-    """Which body of K6c or K6b runs a partition of b rows: "tensor_core"
-    (bf16 compute, b <= DMMA_MAX_B: the logits on the float64 tensor cores,
-    the partition's rows in shared memory) or "block_gemm" (float32
-    compute, and b in (256, 512], whose bf16 rows and logits do not fit in
-    shared memory)."""
+    """Which body of K6c, K6b or K6a runs a partition of b rows:
+    "tensor_core" (bf16 compute, b <= DMMA_MAX_B: the logits on the float64
+    tensor cores, the partition's rows in shared memory) or "block_gemm"
+    (float32 compute, and b in (256, 512], whose bf16 rows and logits do
+    not fit in shared memory). K6a's compute type is its q's and k's."""
     return "tensor_core" if compute_bf16 and b <= DMMA_MAX_B else "block_gemm"
 
 
@@ -253,20 +254,21 @@ def _signature_launch(wrapper, entry, x, pad, *args, extra=(), scratch: bool = T
     return rsum, rcnt
 
 
-def _check_variant(name: str, variant: str, x, compute_bf16: bool) -> bool:
-    """Checks K6c's or K6b's `variant` (faults run on the card only, in the
-    tensor-core body at D=128 on float32 x) and returns whether the
-    tensor-core body runs (`sig_body`; False on CPU tensors, which take
-    the plain version)."""
+def _check_variant(name: str, variant: str, x, compute_bf16: bool,
+                   variant_dtype: torch.dtype = torch.float32) -> bool:
+    """Checks the `variant` of K6c, K6b or K6a (faults run on the card
+    only, in the tensor-core body at D=128 on x of `variant_dtype`) and
+    returns whether the tensor-core body runs (`sig_body`; False on CPU
+    tensors, which take the plain version)."""
     _lib.require(variant in SIG_VARIANTS, f"{name}: unknown variant {variant!r}")
     if x.device.type == "cpu":
         _lib.require(variant == "exact", f"{name}: variant {variant!r} runs on the card only")
         return False
     _, b, d = x.shape
     tc = sig_body(b, compute_bf16) == "tensor_core"
-    _lib.require(variant == "exact" or (tc and d == 128 and x.dtype == torch.float32),
+    _lib.require(variant == "exact" or (tc and d == 128 and x.dtype == variant_dtype),
                  f"{name}: variant {variant!r} is built for the tensor-core body at D=128 "
-                 f"on float32 x only")
+                 f"on {str(variant_dtype).replace('torch.', '')} x only")
     return tc
 
 
@@ -326,21 +328,30 @@ def block_gate_signature_x(x, pad, A_sig, *, eps: float, compute_bf16: bool,
 block_gate_signature_x.launches = 0
 
 
-def block_gate_signature(q, k, pad, *, eps: float, scale: float):
+def block_gate_signature(q, k, pad, *, eps: float, scale: float, variant: str = "exact"):
     """Gate-signature reduction from projected features (K6a).
 
     q, k [nB, B, D] of one dtype (float32 or bfloat16), pad [nB, B]
     float32. Per block s = q k^T * scale, and per row the sum and count of
     s > eps over valid pairs. Returns (rsum, rcnt), float32 [nB, B] each.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    whose body follows the shape and q's dtype (`sig_body`: bf16 q and k
+    at B <= 256 on the float64 tensor cores). `variant` other than
+    "exact" runs a fault planted in the tensor-core body (SIG_VARIANTS, on
+    bf16 q and k), for controls only.
     """
+    name = "block_gate_signature"
+    bf16 = q.dtype == torch.bfloat16
     if q.device.type == "cpu":
+        _check_variant(name, variant, q, bf16, torch.bfloat16)
         return block_gate_signature_reference(q, k, pad, eps=eps, scale=scale)
-    check_rows("block_gate_signature", q, pad)
+    check_rows(name, q, pad)
     _lib.require(k.dtype == q.dtype and k.shape == q.shape and k.device == q.device
                  and k.is_contiguous(), "block_gate_signature: k must be like q")
-    return _signature_launch(block_gate_signature, "block_gate_signature", q, pad, k,
-                             extra=(int(q.dtype == torch.bfloat16), eps, scale))
+    tc = _check_variant(name, variant, q, bf16, torch.bfloat16)
+    return _signature_launch(block_gate_signature, name, q, pad, k,
+                             extra=(int(bf16), int(tc), SIG_VARIANTS[variant], eps, scale),
+                             scratch=not tc)
 
 
 block_gate_signature.launches = 0

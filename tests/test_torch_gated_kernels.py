@@ -28,6 +28,7 @@ from ruvector_tpu.graph_transformer.gated import GatedGraphTransformerConfig as 
 from ruvector_tpu.graph_transformer.gated import _fold_sig_params as jfold_sig
 from ruvector_tpu.graph_transformer.gated import gated_graph_transformer_init as jinit
 from ruvector_tpu.graph_transformer.gated import pack_keep as jpack
+from ruvector_tpu.ops.pallas.gated_block_attn import block_gate_signature as jk6a
 from ruvector_tpu.ops.pallas.gated_block_attn import block_gate_signature_ln_x as jk6c
 from ruvector_tpu.ops.pallas.gated_block_attn import block_gate_signature_x as jk6b
 from ruvector_tpu.ops.pallas.gated_block_attn import fold_gated_attention_params as jfold_attn
@@ -40,6 +41,7 @@ from ruvector_tpu_torch.graph_transformer import GatedGraphTransformerConfig
 from ruvector_tpu_torch.graph_transformer.gated import _fold_sig_params
 from ruvector_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
+    block_gate_signature,
     block_gate_signature_ln_x,
     block_gate_signature_ln_x_reference,
     block_gate_signature_x,
@@ -242,6 +244,40 @@ def test_signature_x_at_the_halo_layout(variant):
             block_gate_signature_x(x_t, pad_t, A_t, eps=0.01, compute_bf16=True,
                                    variant=variant)
     assert launch_counts()["block_gate_signature_x"] == 0
+
+
+@pytest.mark.parametrize("variant", ["exact", "f32_acc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6a_body_follows_the_qk_dtype(dtype, variant):
+    """K6a's body is `sig_body` with q's dtype as its compute type: bf16 q
+    and k at B <= 256 (the halo layout's B = 240 included) take the
+    float64 tensor-core body on the card, float32 q and k and B > 256
+    block_gemm's. On CPU tensors the wrapper takes the plain version,
+    which agrees with JAX's K6a in interpret mode, and its planted fault,
+    a card-only instance, raises."""
+    assert [sig_body(b, True) for b in (32, 128, 240, 256)] == ["tensor_core"] * 4
+    assert [sig_body(b, True) for b in (257, 320, 512)] == ["block_gemm"] * 3
+    assert sig_body(240, dtype == torch.bfloat16) == \
+        ("tensor_core" if dtype == torch.bfloat16 else "block_gemm")
+    rng = np.random.default_rng(9)
+    q = rng.normal(size=(2, 240, 32)).astype(np.float32)
+    k = rng.normal(size=(2, 240, 32)).astype(np.float32)
+    pad = np.ones((2, 240), np.float32)
+    pad[1, 200:] = 0.0
+    tq, tk = torch.from_numpy(q).to(dtype), torch.from_numpy(k).to(dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    reset_launch_counts()
+    if variant == "exact":
+        rsum, rcnt = block_gate_signature(tq, tk, torch.from_numpy(pad), eps=0.01, scale=0.2)
+        jrsum, jrcnt = jk6a(jnp.asarray(q).astype(jdt), jnp.asarray(k).astype(jdt),
+                            jnp.asarray(pad), eps=0.01, scale=0.2)
+        assert float(rcnt.sum()) > 0 and float(rcnt[1, 200:].sum()) == 0.0
+        _sig_close(rsum, rcnt, jrsum, jrcnt, dtype == torch.bfloat16)
+    else:
+        with pytest.raises(ValueError):
+            block_gate_signature(tq, tk, torch.from_numpy(pad), eps=0.01, scale=0.2,
+                                 variant=variant)
+    assert launch_counts()["block_gate_signature"] == 0
 
 
 def test_mha_tiles_are_the_heads_rounded_to_bf16():

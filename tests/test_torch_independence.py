@@ -33,10 +33,13 @@ from ruvector_tpu_torch.attention.rope import rope_tables
 from ruvector_tpu_torch.attention.sheaf import SheafAttentionConfig, sheaf_init
 from ruvector_tpu_torch.attention.transport import TransportConfig, transport_init
 from ruvector_tpu_torch.convert import params_from_numpy
-from ruvector_tpu_torch.graph import NeighborGraph, build_block_dense, build_knn_graph
+from ruvector_tpu_torch.graph import CSRGraph, NeighborGraph, build_block_dense, build_knn_graph
 from ruvector_tpu_torch.graph_transformer import (
     GatedGraphTransformerConfig,
+    GraphTransformerConfig,
+    MorphogeneticField,
     gated_graph_transformer_init,
+    graph_transformer_init,
 )
 from ruvector_tpu_torch.index import FlatIndex
 from ruvector_tpu_torch.models import (
@@ -74,6 +77,7 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_from_x
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
 from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather
+from ruvector_tpu_torch.solver import BmsspSolver, TrueSolver, cg_solve, forward_push_ppr
 from ruvector_tpu_torch.transformer import (
     Decoder,
     GatePacket,
@@ -117,6 +121,13 @@ for mod in ("config", "packets", "gate", "quant", "kv_cache", "sparse_attention"
             "speculative", "kv_metrics", "kv_quantizers", "spike", "spike_attention",
             "mamba", "spectral"):
     assert "ruvector_tpu_torch.transformer." + mod in names, mod
+for mod in ("solver.iterative", "solver.push", "solver.bmssp", "solver.true_solver",
+            "solver.router", "graph_transformer.block", "graph_transformer.sublinear",
+            "graph_transformer.physics", "graph_transformer.biological",
+            "graph_transformer.self_organizing", "graph_transformer.manifold",
+            "graph_transformer.temporal", "graph_transformer.economic",
+            "graph_transformer.verified"):
+    assert "ruvector_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -129,13 +140,14 @@ def test_imports_no_jax_and_no_jax_package():
     """Whole module names: `ruvector_tpu_torch` starts with `ruvector_tpu`.
     The walk covers every module, the training package, the distance ops,
     the serving path, the K8/K9 wrappers, the GNN model family, the whole
-    attention family, the witness log, the quantization ops and the 19
-    modules of the min-cut-gated transformer included."""
+    attention family, the witness log, the quantization ops, the 19
+    modules of the min-cut-gated transformer, the solvers and the rest of
+    the graph transformers included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 98
+    assert int(count) >= 113
     assert bad == "[]"
 
 
@@ -191,6 +203,9 @@ _ENTRY_POINTS = {
     "train_early_exit": lambda: train_early_exit(_TINY, steps=1, batch=1, seq_len=4),
     "mamba_init": lambda: mamba_init(torch.Generator(), MambaConfig.micro()),
     "mamba_state_init": lambda: mamba_state_init(MambaConfig.micro()),
+    "graph_transformer_init": lambda: graph_transformer_init(0, GraphTransformerConfig(dim=8)),
+    "BmsspSolver": lambda: BmsspSolver(),
+    "MorphogeneticField.init_state": lambda: MorphogeneticField().init_state(4),
 }
 
 
@@ -236,7 +251,28 @@ _CPU_INITS = {
     "kv_cache_init": lambda: [kv_cache_init(_TINY_CACHE, device="cpu", batch=2).hot_k],
     "mamba_init": lambda: mamba_init(torch.Generator().manual_seed(0), MambaConfig.micro(),
                                      device="cpu"),
+    "graph_transformer_init": lambda: graph_transformer_init(
+        0, GraphTransformerConfig(dim=8, num_heads=2), device="cpu"),
+    "MorphogeneticField.init_state": lambda: list(MorphogeneticField().init_state(
+        4, device="cpu")),
 }
+
+
+def test_solver_and_graph_transformer_entry_points_run_on_the_cpu_when_asked():
+    """The AMG solver asked for the CPU solves there; the solvers, PPR and
+    the sketched solve follow the device of the matrix they are given."""
+    src = np.repeat(np.arange(6), 2)
+    dst = np.stack([(np.arange(6) + 1) % 6, (np.arange(6) - 1) % 6], 1).reshape(-1)
+    rows = np.concatenate([src, np.arange(6)])
+    cols = np.concatenate([dst, np.arange(6)])
+    vals = np.concatenate([-np.ones(12), np.full(6, 3.0)])
+    amg = BmsspSolver(device="cpu").setup(rows, cols, vals, 6)
+    x, _, _ = amg.solve(np.ones(6))
+    assert x.device.type == "cpu"
+    mat = CSRGraph.from_edges(rows, cols, vals, 6, device="cpu")
+    assert cg_solve(mat, np.ones(6)).x.device.type == "cpu"
+    assert forward_push_ppr(mat, 0).device.type == "cpu"
+    assert TrueSolver(jl_dimension=6).solve(mat, np.ones(6)).device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", sorted(_CPU_INITS))

@@ -644,13 +644,115 @@ def test_block_gate_signature_x_and_qk_kernels(card, xdt, compute_bf16):
     assert torch.equal(rcnt, want_c) and float(rcnt.sum()) > 0
     torch.testing.assert_close(rsum, want_s, rtol=1e-6, atol=0.0)
     q = (x.float() @ A).to(xdt)
+    # K6a's body follows q's dtype: bf16 on the float64 tensor cores,
+    # float32 on block_gemm
+    assert sig_body(48, xdt == torch.bfloat16) == \
+        ("tensor_core" if xdt == torch.bfloat16 else "block_gemm")
     rsum, rcnt = block_gate_signature(q, x, pad, eps=0.01, scale=0.3)
     want_s, want_c = block_gate_signature_reference(q, x, pad, eps=0.01, scale=0.3)
     torch.cuda.synchronize()
     assert torch.equal(rcnt, want_c) and float(rcnt.sum()) > 0
     torch.testing.assert_close(rsum, want_s, rtol=1e-6, atol=0.0)
+    gemm = _signature_qk_block_gemm(q, x, pad, 0.3)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip((rsum, rcnt), gemm))
     counts = launch_counts()
-    assert counts["block_gate_signature_x"] == 1 and counts["block_gate_signature"] == 1
+    assert counts["block_gate_signature_x"] == 1 and counts["block_gate_signature"] == 2
+
+
+def _signature_qk_block_gemm(q, k, pad, scale):
+    """K6a on its block_gemm body, whatever the shape and dtype."""
+    return gated_block_attn._signature_launch(
+        block_gate_signature, "block_gate_signature", q, pad, k,
+        extra=(int(q.dtype == torch.bfloat16), 0, 0, 0.01, scale))
+
+
+def _qk_inputs(dev, nb, b, d, seed):
+    """bf16 q and k at the scale of the halo layout's projections, a pad
+    tail on the last partition."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(nb, b, d, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(nb, b, d, generator=g).to(dev, torch.bfloat16)
+    pad = torch.ones(nb, b)
+    pad[-1, b - b // 3:] = 0.0
+    return q, k, pad.to(dev)
+
+
+@pytest.mark.parametrize("b", [32, 128, 240, 256])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_block_gate_signature_qk_tensor_core_body(card, b, d):
+    """K6a at bf16 and B <= 256 runs the float64 tensor-core body
+    (`sig_body`): counts equal to the plain version's, sums within 1e-6
+    relative, and both bit for bit those of the block_gemm body."""
+    q, k, pad = _qk_inputs(card, 5, b, d, seed=b + d)
+    scale = 1.0 / (d ** 0.5)
+    assert sig_body(b, True) == "tensor_core"
+    got = block_gate_signature(q, k, pad, eps=0.01, scale=scale)
+    want_s, want_c = block_gate_signature_reference(q, k, pad, eps=0.01, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want_c) and float(want_c.sum()) > 0
+    assert float(got[1][pad == 0].sum()) == 0.0
+    torch.testing.assert_close(got[0], want_s, rtol=1e-6, atol=0.0)
+    gemm = _signature_qk_block_gemm(q, k, pad, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, gemm))
+    assert launch_counts()["block_gate_signature"] == 2
+
+
+@pytest.mark.parametrize("b,dtype", [(320, torch.bfloat16), (240, torch.float32)])
+def test_block_gate_signature_qk_block_gemm_body(card, b, dtype):
+    """float32 q and k, and B > 256, keep block_gemm (`sig_body`), which
+    meets the plain version as before; the tensor-core body refuses
+    them."""
+    q, k, pad = _qk_inputs(card, 3, b, 128, seed=b)
+    q, k = q.to(dtype), k.to(dtype)
+    assert sig_body(b, dtype == torch.bfloat16) == "block_gemm"
+    got = block_gate_signature(q, k, pad, eps=0.01, scale=0.1)
+    want_s, want_c = block_gate_signature_reference(q, k, pad, eps=0.01, scale=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want_c) and float(want_c.sum()) > 0
+    torch.testing.assert_close(got[0], want_s, rtol=1e-6, atol=0.0)
+    lib = _lib.load("gated_block_attn")
+    rc = lib.block_gate_signature(q.data_ptr(), pad.data_ptr(), k.data_ptr(), got[0].data_ptr(),
+                                  got[1].data_ptr(), None, q.shape[0], b, 128, 1,
+                                  int(dtype == torch.bfloat16), 1, 0, 0.01, 0.1,
+                                  _lib.stream_handle(q))
+    assert rc != 0
+
+
+def plant_cancelling_pair(q, k, big=256.0):
+    """q and k with columns 0 and D/2 replaced by a cancelling pair of
+    large products in every row: q[..., 0] = q[..., D/2] = big, k[..., 0]
+    = big and k[..., D/2] = -big. The pair's products sum to 0 exactly,
+    while a float32 running sum loses the low bits of the terms it holds
+    beside big^2."""
+    d = q.shape[-1]
+    q, k = q.clone(), k.clone()
+    q[..., 0] = big
+    q[..., d // 2] = big
+    k[..., 0] = big
+    k[..., d // 2] = -big
+    return q, k
+
+
+def test_block_gate_signature_qk_fault_is_rejected(card):
+    """K6a's tensor-core body with its sums rounded to float32 every four
+    products (the planted fault F32ACC) misses the plain version's counts
+    and row sums on inputs with a cancelling pair of large products,
+    where the exact instance meets them."""
+    q, k, pad = _qk_inputs(card, 20, 240, 128, seed=11)
+    q, k = plant_cancelling_pair(q, k)
+    scale = 1.0 / (32 ** 0.5) / 4
+    want_s, want_c = block_gate_signature_reference(q, k, pad, eps=0.01, scale=scale)
+
+    def agrees(got):
+        torch.cuda.synchronize()
+        return torch.equal(got[1], want_c) and bool(
+            torch.allclose(got[0], want_s, rtol=1e-6, atol=0.0))
+
+    assert agrees(block_gate_signature(q, k, pad, eps=0.01, scale=scale))
+    assert not agrees(block_gate_signature(q, k, pad, eps=0.01, scale=scale,
+                                           variant="f32_acc"))
 
 
 def _signature_x_block_gemm(x, pad, A):
