@@ -71,6 +71,18 @@ card:
     the padded SpMM, the K9 gather-fused SpMM on the whole graph and the
     CSR SpMM on a regular 99,840-node k=16 graph; the degree-bucketed,
     max-degree padded and CSR SpMM on a 50,000-node power-law graph.
+  * SONA (`[sona]`, no kernel): MicroLoRA at 4096 wide, rank 2, then a
+    SonaEngine (hidden 128) fed 4,096 trajectories of the 100k-node
+    graph with its learning cycles, the adapters applied on the card,
+    pattern retrieval, a federated average and an export round trip; the
+    same stream on the CPU must leave the same host state, bit for bit.
+  * the training utilities (`[training_utils]`) on the same graph: the
+    three mining strategies for 1,024 anchors against all 100k nodes, the
+    spectral regularizer, the training metrics around the contrastive
+    step, a training worker's jobs, the profiler around the fused K1
+    layer (its region against the CUDA-event time), checkpoints of config
+    5's parameters, and the cold tier: the features on disk streamed in
+    hyperbatches of 4,096, the hotset and the mmap store.
   * the min-cut-gated transformer (`[transformer]`, no kernel) at
     benchmarks/spec_at_size.py's width (12 layers x 1024 hidden x 16
     heads, 152M parameters): early-exit training, greedy and speculative
@@ -87,6 +99,7 @@ package beside this script.
 
     python3 chip_smoke.py
     python3 chip_smoke.py solver graph_transformer_rest    (those phases alone)
+    python3 chip_smoke.py sona training_utils              (those phases alone)
 """
 
 from __future__ import annotations
@@ -100,6 +113,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -355,12 +369,27 @@ from ruvector_tpu_torch.serve.rerank import (  # noqa: E402
     rerank_scores,
     retrieve_candidates,
 )
+from ruvector_tpu_torch.sona import SonaConfig, SonaEngine  # noqa: E402
+from ruvector_tpu_torch.sona.export import export_lora, import_lora  # noqa: E402
+from ruvector_tpu_torch.sona.federated import FederatedAggregator  # noqa: E402
+from ruvector_tpu_torch.sona.lora import MicroLoRA, lora_forward  # noqa: E402
+from ruvector_tpu_torch.sona.types import LearningSignal  # noqa: E402
 from ruvector_tpu_torch.training import (  # noqa: E402
     TrainConfig,
+    TrainingMetrics,
     adam,
+    batched_info_nce,
     make_train_step,
     sample_negatives,
+    train_epoch,
 )
+from ruvector_tpu_torch.training.mining import (  # noqa: E402
+    MiningConfig,
+    in_batch_negatives,
+    mine_negatives,
+    spectral_regularizer,
+)
+from ruvector_tpu_torch.training.worker import GnnTrainingWorker, JobStatus  # noqa: E402
 from ruvector_tpu_torch.training.optimizers import tree_leaves, tree_map  # noqa: E402
 from ruvector_tpu_torch.transformer import (  # noqa: E402
     Decoder,
@@ -418,6 +447,19 @@ from ruvector_tpu_torch.transformer.train_spec import (  # noqa: E402
     seq_logits_at_depths,
     train_early_exit,
 )
+from ruvector_tpu_torch.utils.checkpoint import (  # noqa: E402
+    AsyncShardedCheckpointer,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from ruvector_tpu_torch.utils.cold_tier import (  # noqa: E402
+    AdaptiveHotset,
+    ColdTierTrainer,
+    FeatureStorage,
+    HyperbatchConfig,
+)
+from ruvector_tpu_torch.utils.mmap_store import MmapEmbeddingStore  # noqa: E402
+from ruvector_tpu_torch.utils.profiler import Profiler  # noqa: E402
 
 DEV = torch.device("cuda")
 N_NODES = 100_000   # bench.py's headline graph
@@ -596,6 +638,23 @@ TF_INT8_TOL = 5e-2
 # exact-erf GELU moves them by 1.75e-4, under twice the f32 limit, and
 # this limit rejects it with room to spare
 TF_F32_TOL = (1e-5, 1e-6)
+# SONA (`[sona]`): MicroLoRA at benchmarks/suite.py:374-390's shapes (4096
+# wide, rank 2, one query and a batch of 256); the engine at
+# benchmarks/learned_recall_curve.py:139-141's settings (hidden = embedding
+# = 128, flush 64, quality 0.3) over the main path's graph: trajectories,
+# a force_learn every SN_LEARN_EVERY of them, the rows of apply_micro_lora,
+# the trajectories of the second engine of the federated average
+SN_WIDE, SN_RANK, SN_BATCH = 4096, 2, 256
+SN_FLUSH, SN_QUALITY = 64, 0.3
+SN_TRAJ, SN_LEARN_EVERY, SN_APPLY_ROWS, SN_PEER_TRAJ = 4096, 1024, 1024, 1024
+# the training utilities on the same graph (`[training_utils]`): mined
+# anchors (a [1024, 100k] score matrix) and negatives each; the in-batch
+# batch; the contrastive steps timed by TrainingMetrics; the batch of the
+# worker's one-epoch job; the profiled K1 layer calls; the cold tier's
+# hyperbatch, the hotset's capacity and accesses, the mmap store's dirty rows
+TU_ANCHORS, TU_NEGATIVES, TU_IN_BATCH = 1024, 16, 1024
+TU_METRIC_STEPS, TU_WORKER_BATCH, TU_PROFILE_ITERS = 3, 8192, 10
+TU_HYPERBATCH, TU_HOT_CAP, TU_HOT_ACCESSES, TU_MMAP_DIRTY = 4096, 1024, 20_000, 4096
 
 
 def say(phase: str, **fields) -> None:
@@ -889,12 +948,31 @@ def tile_share(wd: torch.Tensor, rows: int = 16, cols: int = 64) -> float:
     return float(e.reshape(nb, -1, rows, e.shape[2] // cols, cols).amax(dim=(2, 4)).mean())
 
 
-def bench_features(n: int, d: int) -> np.ndarray:
-    """bench.py's clustered data: 1000 centers x (n/1000) points, std 0.25."""
+def bench_clusters(n: int, d: int) -> tuple[np.ndarray, np.ndarray]:
+    """bench.py's clustered data: 1000 centers x (n/1000) points, std 0.25;
+    (features, each point's center)."""
     rng = np.random.default_rng(0)
     centers = rng.normal(size=(1000, d)).astype(np.float32)
-    return (centers[rng.integers(0, 1000, size=n)]
-            + 0.25 * rng.normal(size=(n, d))).astype(np.float32)
+    labels = rng.integers(0, 1000, size=n)
+    return (centers[labels] + 0.25 * rng.normal(size=(n, d))).astype(np.float32), labels
+
+
+def bench_features(n: int, d: int) -> np.ndarray:
+    return bench_clusters(n, d)[0]
+
+
+def block_layout(feats_np: np.ndarray, graph: NeighborGraph):
+    """The main path's layout: graph-grown 512-node blocks of the kNN
+    graph. Returns (perm, the block-dense graph, the padded features)."""
+    idx = graph.nbr_idx.cpu().numpy()
+    mask = graph.nbr_mask.cpu().numpy()
+    ew = graph.edge_weight.cpu().numpy()
+    perm, leaves = graph_grow_blocks(idx, mask, leaf_size=512)
+    inv = np.empty(len(idx), np.int64)
+    inv[perm] = np.arange(len(idx))
+    bdg = build_block_dense(inv[idx[perm]].astype(np.int32), mask[perm], ew[perm],
+                            leaf_sizes=leaves, dtype=torch.float32, device=DEV)
+    return perm, bdg, bdg.pad_features(torch.from_numpy(feats_np[perm]).to(DEV))
 
 
 def counted(kernel_names, fn):
@@ -2667,6 +2745,537 @@ def _flat_dict(tree):
     return [tree]
 
 
+# ---------------------------------------------------------------------------
+# SONA and the training utilities (plain PyTorch and host numpy, no kernel
+# but the profiled K1 layer)
+# ---------------------------------------------------------------------------
+
+def _sona_stream(feats: torch.Tensor, graph: NeighborGraph, labels: np.ndarray):
+    """SN_TRAJ trajectories over distinct nodes (seed 0): the query is the
+    node's feature, the step the mean of its kNN neighbours minus the
+    query, the reward the share of those neighbours in the node's cluster.
+    Computed on the card, handed to the engines as host arrays."""
+    nodes = np.random.default_rng(0).choice(graph.num_nodes, SN_TRAJ, replace=False)
+    ids = torch.from_numpy(nodes).to(DEV)
+    nbr, m = graph.nbr_idx[ids].long(), graph.nbr_mask[ids]
+    count = torch.clamp(m.sum(1, keepdim=True), min=1.0)
+    q = feats[ids]
+    step = (feats[nbr] * m[..., None]).sum(1) / count - q
+    lab = torch.from_numpy(labels).to(DEV)
+    reward = ((lab[nbr] == lab[ids][:, None]).float() * m).sum(1) / count[:, 0]
+    return q.cpu().numpy(), step.cpu().numpy(), reward.cpu().numpy()
+
+
+def _sona_feed(engine, q, step, reward) -> list:
+    """Feed trajectories; force_learn every SN_LEARN_EVERY. Returns the
+    force_learn milliseconds."""
+    learn_ms = []
+    for i in range(len(q)):
+        b = engine.begin_trajectory(q[i])
+        b.add_step(step[i], np.ones(1, np.float32), float(reward[i]))
+        engine.end_trajectory(b, quality=float(reward[i]))
+        if (i + 1) % SN_LEARN_EVERY == 0:
+            t0 = time.perf_counter()
+            engine.force_learn()
+            learn_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+    return learn_ms
+
+
+def _sona_host_state(engine) -> dict:
+    """Every host array of an engine's loops, for bit-for-bit comparison."""
+    micro = engine.coordinator.instant.micro_lora
+    bg = engine.coordinator.background
+    state = {"micro.up": micro.up, "micro.grad_up": micro.grad_up,
+             "ewc.fisher": bg.ewc.current_fisher, "ewc.weights": bg.ewc.current_weights}
+    state.update({f"base.up.{i}": u for i, u in enumerate(bg.base_lora.up)})
+    state.update({f"pattern.{pid}": p.centroid for pid, p in bg.bank.patterns.items()})
+    return state
+
+
+def _equal_host(name: str, got: dict, want: dict) -> None:
+    same = got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in got)
+    say("equal", name=f"{name}: card engine vs CPU engine", arrays=len(got), ok=same)
+    if not same:
+        raise AssertionError(f"{name}: the host state differs between the engines")
+
+
+def _micro_lora_bench() -> dict:
+    """MicroLoRA at 4096 x rank 2 on one query and a batch of 256: the
+    adapter's forward (device copies of down and up kept while their
+    contents are unchanged) and the same forward with both copied to the
+    card on every call; each held to the CPU."""
+    ml = MicroLoRA(SN_WIDE, rank=SN_RANK, device=DEV)
+    rng = np.random.default_rng(5)
+    ml.accumulate_gradient(LearningSignal(rng.normal(size=SN_WIDE).astype(np.float32), 1.0))
+    ml.apply_accumulated(0.01)
+    cpu = MicroLoRA(SN_WIDE, rank=SN_RANK, device="cpu")
+    cpu.up = ml.up.copy()
+    out = {}
+    for label, shape in (("single", (SN_WIDE,)), ("batch256", (SN_BATCH, SN_WIDE))):
+        x_np = rng.normal(size=shape).astype(np.float32)
+        x = torch.from_numpy(x_np).to(DEV)
+        agree_scaled(f"MicroLoRA {label}: card vs CPU", ml.forward(x).cpu(),
+                     cpu.forward(x_np), torch.float32)
+        copied = lambda: lora_forward(x, torch.from_numpy(ml.down).to(DEV),  # noqa: E731
+                                      torch.from_numpy(ml.up).to(DEV), ml.scale)
+        agree(f"MicroLoRA {label}: copied every call vs kept", copied(), ml.forward(x),
+              torch.float32, tol=(0.0, 0.0))
+        kept_ms = time_ms(lambda: ml.forward(x), iters=100)
+        copied_ms = time_ms(copied, iters=100)
+        down, up = torch.from_numpy(ml.down).to(DEV), torch.from_numpy(ml.up).to(DEV)
+        device_ms = kernel_ms(lambda: lora_forward(x, down, up, ml.scale), iters=100)
+        rows = 1 if len(shape) == 1 else shape[0]
+        out[label] = {"us": round(kept_ms * 1e3, 2), "copied_us": round(copied_ms * 1e3, 2),
+                      "back_to_back_us": round(device_ms * 1e3, 2),
+                      "rows_per_s": round(rows / (kept_ms * 1e-3), 1)}
+    return out
+
+
+def phase_sona(feats: torch.Tensor, graph: NeighborGraph, labels: np.ndarray) -> None:
+    """SONA (`[sona]`): MicroLoRA at 4096 x rank 2, then a SonaEngine at
+    learned_recall_curve.py's settings fed SN_TRAJ trajectories of the
+    100k-node graph (a force_learn every SN_LEARN_EVERY), the adapters
+    applied on the card, pattern retrieval, a federated average of two
+    engines and an export/import round trip. The same stream through an
+    engine on the CPU: its host state (up, grad_up, the EWC++ Fisher, the
+    centroids) and its exported file equal bit for bit, the card's
+    outputs within the f32 limits of scale."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    bench = _micro_lora_bench()
+    d = feats.shape[1]
+    cfg = SonaConfig(hidden_dim=d, embedding_dim=d, flush_threshold=SN_FLUSH,
+                     quality_threshold=SN_QUALITY)
+    q, step, reward = _sona_stream(feats, graph, labels)
+    engine, engine_cpu = SonaEngine(config=cfg, device=DEV), SonaEngine(config=cfg, device="cpu")
+    t0 = time.perf_counter()
+    learn_ms = _sona_feed(engine, q, step, reward)
+    feed_s = time.perf_counter() - t0
+    _sona_feed(engine_cpu, q, step, reward)
+    _equal_host("SONA stream", _sona_host_state(engine), _sona_host_state(engine_cpu))
+
+    x = torch.from_numpy(q[:SN_APPLY_ROWS]).to(DEV)
+    ms = {"apply_micro_lora": time_ms(lambda: engine.apply_micro_lora(x), iters=10)}
+    agree_scaled("apply_micro_lora: card vs CPU", engine.apply_micro_lora(x).cpu(),
+                 engine_cpu.apply_micro_lora(x.cpu()), torch.float32)
+    for layer in range(cfg.num_layers):
+        ms[f"apply_base_lora_{layer}"] = time_ms(lambda: engine.apply_base_lora(layer, x),
+                                                 iters=10)
+        agree_scaled(f"apply_base_lora {layer}: card vs CPU",
+                     engine.apply_base_lora(layer, x).cpu(),
+                     engine_cpu.apply_base_lora(layer, x.cpu()), torch.float32)
+    t0 = time.perf_counter()
+    similar = [p.id for p in engine.find_similar_patterns(q[0], k=3)]
+    ms["find_similar"] = (time.perf_counter() - t0) * 1e3
+    if similar != [p.id for p in engine_cpu.find_similar_patterns(q[0], k=3)] or not similar:
+        raise AssertionError(f"find_similar_patterns: {similar}")
+
+    # federated: this engine and a peer fed the stream's first SN_PEER_TRAJ
+    peer = SonaEngine(config=cfg, device=DEV)
+    _sona_feed(peer, q[:SN_PEER_TRAJ], step[:SN_PEER_TRAJ], reward[:SN_PEER_TRAJ])
+    agg = FederatedAggregator(d, num_layers=cfg.num_layers, device=DEV)
+    t0 = time.perf_counter()
+    updates = [agg.collect(engine), agg.collect(peer)]
+    merged = agg.aggregate(updates)
+    target = SonaEngine(config=cfg, device=DEV)
+    agg.apply(target, merged)
+    ms["federated"] = (time.perf_counter() - t0) * 1e3
+    total = sum(u.weight for u in updates)
+    want_up = sum(u.micro_up * (u.weight / total) for u in updates)
+    if not np.array_equal(target.coordinator.instant.micro_lora.up, want_up):
+        raise AssertionError("federated average: the merged adapter differs")
+    agree_scaled("federated adapter: card vs its host state", target.apply_micro_lora(x).cpu(),
+                 lora_forward(x.cpu(), torch.from_numpy(target.coordinator.instant.micro_lora.down),
+                              torch.from_numpy(want_up), target.coordinator.instant.micro_lora.scale),
+                 torch.float32)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        export_lora(engine, f"{tmp}/card.safetensors")
+        fresh = SonaEngine(config=cfg, device=DEV)
+        import_lora(fresh, f"{tmp}/card.safetensors")
+        ms["export_import"] = (time.perf_counter() - t0) * 1e3
+        export_lora(engine_cpu, f"{tmp}/cpu.safetensors")
+        export_lora(fresh, f"{tmp}/round.safetensors")
+        raw = {n: open(f"{tmp}/{n}.safetensors", "rb").read() for n in ("card", "cpu", "round")}
+    same = raw["card"] == raw["cpu"] == raw["round"]
+    say("equal", name="exported adapters: card, CPU and round trip", bytes=len(raw["card"]),
+        ok=same)
+    if not same:
+        raise AssertionError("the exported adapter files differ")
+    agree("imported adapter vs exported engine", fresh.apply_micro_lora(x),
+          engine.apply_micro_lora(x), torch.float32, tol=(0.0, 0.0))
+    if kernels.launch_counts() != before:
+        raise AssertionError("SONA launched a kernel")
+    say("sona", micro_lora=json.dumps(bench, separators=(",", ":")), hidden=d,
+        trajectories=SN_TRAJ, trajectories_per_s=round(SN_TRAJ / feed_s, 1),
+        force_learn_ms=learn_ms, patterns=engine.coordinator.background.bank.pattern_count,
+        **{f"{k}_ms": round(v, 4) for k, v in ms.items()}, kernel_launches=0,
+        seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def mined_agree(name: str, ids, ids_cpu, sims_cpu: np.ndarray, scores_cpu=None, edges=None,
+                tol: float = 1e-5) -> float:
+    """Mined negatives of the card against the CPU's (queue 3's tie rule).
+    For the semi-hard band, an id within tol of a band edge `edges` [B, 2]
+    may fall inside the band on one device and outside on the other (the
+    positive's own row sits at the upper edge); such ids are set aside,
+    and the rest of each list is compared over the shorter one's length.
+    There an id in one list and not the other must be a tie: within tol of
+    the k-th similarity or, where the band holds fewer than k, an
+    out-of-band filler (score -inf in `scores_cpu`) as the CPU list holds
+    one. Returns the share of rows with equal ids."""
+    ids, ids_cpu = np.asarray(ids.cpu()), np.asarray(ids_cpu.cpu())
+    scores_cpu = sims_cpu if scores_cpu is None else scores_cpu
+    differ = (ids != ids_cpu).any(axis=1)
+    bad = []
+    for r in np.nonzero(differ)[0]:
+        s, sc = sims_cpu[r], scores_cpu[r]
+        at_edge = (lambda i: False) if edges is None else (
+            lambda i: min(abs(s[i] - e) for e in edges[r]) <= tol)
+        a = [i for i in ids_cpu[r] if not at_edge(i)]
+        b = [i for i in ids[r] if not at_edge(i)]
+        m = min(len(a), len(b))
+        a, b = a[:m], b[:m]
+        kth = min(s[a]) if m else -np.inf
+        filler = bool(np.isneginf(sc[a]).any())
+        for i in set(a) ^ set(b):
+            if not (abs(s[i] - kth) <= tol or (filler and bool(np.isneginf(sc[i])))):
+                bad.append((int(r), int(i), float(s[i]), float(kth)))
+    equal = 1.0 - float(differ.mean())
+    say("agree", name=f"{name}: card vs CPU", rows=len(ids), rows_ids_equal=equal,
+        differ_only_at_ties=not bad, tol=tol, ok=not bad,
+        **({"first_bad": json.dumps(bad[:4])} if bad else {}))
+    if bad:
+        raise AssertionError(f"{name}: the mined ids differ away from a tie")
+    return equal
+
+
+def _mining(feats: torch.Tensor, graph: NeighborGraph) -> dict:
+    """mine_negatives' three strategies for TU_ANCHORS anchors (their
+    first kNN neighbour the positive) against the whole graph, on the card
+    and on the CPU; in_batch_negatives at TU_IN_BATCH."""
+    anchors_np = np.random.default_rng(1).choice(graph.num_nodes, TU_ANCHORS, replace=False)
+    ids = torch.from_numpy(anchors_np).to(DEV)
+    a, pos = feats[ids], feats[graph.nbr_idx[ids, 0].long()]
+    a_c, pos_c, pool_c = a.cpu(), pos.cpu(), feats.cpu()
+    sims_cpu = pairwise_cosine(a_c, pool_c).numpy()
+    out = {}
+    for strategy in ("hard", "semi_hard", "distance_weighted"):
+        mcfg = MiningConfig(strategy=strategy, n_negatives=TU_NEGATIVES)
+        mine = lambda: mine_negatives(a, feats, pos, mcfg,  # noqa: E731
+                                      rng=np.random.default_rng(2))
+        # the distance-weighted draws run on the host: one synchronised call
+        got, ms = _synced_ms(mine) if strategy == "distance_weighted" else (
+            mine(), time_ms(mine, iters=5))
+        want = mine_negatives(a_c, pool_c, pos_c, mcfg, rng=np.random.default_rng(2))
+        out[f"{strategy}_ms"] = ms
+        if strategy == "hard":
+            out["hard_rows_equal"] = mined_agree("mine hard", got, want, sims_cpu)
+        elif strategy == "semi_hard":
+            ps = (torch.sum(a_c * pos_c, -1) / torch.clamp(
+                torch.linalg.vector_norm(a_c, dim=-1) * torch.linalg.vector_norm(pos_c, dim=-1),
+                min=1e-12)).numpy()
+            band = (sims_cpu > ps[:, None] - mcfg.margin) & (sims_cpu < ps[:, None])
+            scored = np.where(band.any(1, keepdims=True),
+                              np.where(band, sims_cpu, -np.inf), sims_cpu)
+            edges = np.stack([ps, ps - mcfg.margin], axis=1)
+            out["semi_hard_rows_equal"] = mined_agree("mine semi_hard", got, want, sims_cpu,
+                                                      scored, edges)
+            del band, scored
+        else:
+            p = torch.softmax(pairwise_cosine(a, feats) / mcfg.temperature, dim=-1).cpu()
+            p_cpu = torch.softmax(torch.from_numpy(sims_cpu) / mcfg.temperature, dim=-1)
+            agree_scaled("distance-weighted probabilities: card vs CPU", p, p_cpu,
+                         torch.float32)
+            got_np, want_np = got.cpu().numpy(), want.numpy()
+            same_p = (p == p_cpu).all(dim=1).numpy()
+            checked, rows_equal = 0, (got_np == want_np).all(axis=1)
+            for r in range(len(got_np)):
+                if not rows_equal[r]:
+                    if same_p[r]:
+                        raise AssertionError(f"distance-weighted row {r}: equal "
+                                             "probabilities, other ids")
+                    break
+                checked += int(same_p[r])
+            valid = all(len(set(row)) == TU_NEGATIVES for row in got_np) and bool(
+                (p.gather(1, got.cpu().long()) > 0).all())
+            if not valid:
+                raise AssertionError("distance-weighted ids repeat or have probability 0")
+            out["dw_rows_equal"] = float(rows_equal.mean())
+            out["dw_rows_equal_p_checked"] = checked
+            del p, p_cpu
+    equal_cpu("in_batch_negatives", in_batch_negatives(TU_IN_BATCH, device=DEV),
+              in_batch_negatives(TU_IN_BATCH, device="cpu"))
+    out["in_batch_ms"] = time_ms(lambda: in_batch_negatives(TU_IN_BATCH, device=DEV), iters=10)
+    return out
+
+
+def _spectral(cfg32: RuvectorLayerConfig) -> dict:
+    """spectral_regularizer and its gradient over the RuvectorLayer's
+    parameters (d=128, 4 heads), card against CPU."""
+    params = ruvector_layer_init(0, cfg32, device=DEV)
+
+    def value_and_grads(tree):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
+        it = iter(leaves)
+        val = spectral_regularizer(tree_map(lambda _: next(it), tree))
+        return val, torch.autograd.grad(val, leaves, allow_unused=True)
+
+    val, grads = value_and_grads(params)
+    ms = time_ms(lambda: value_and_grads(params), iters=5)
+    val_c, grads_c = value_and_grads(_tree_cpu(params))
+    agree_scaled("spectral_regularizer: card vs CPU", val.detach().cpu()[None],
+                 val_c.detach()[None], torch.float32)
+    mats = 0
+    for g, gc in zip(grads, grads_c):
+        if gc is None:
+            if g is not None:
+                raise AssertionError("spectral gradient on a non-matrix leaf")
+            continue
+        agree_scaled("spectral gradient: card vs CPU", g.cpu(), gc, torch.float32)
+        mats += 1
+    return {"spectral_ms": ms, "spectral": float(val.detach()), "spectral_matrices": mats}
+
+
+def _train_metrics_and_worker(params, cfg, feats, graph) -> dict:
+    """TrainingMetrics.timed_step around TU_METRIC_STEPS contrastive steps
+    (phase_contrastive's step, after one untimed step), then a
+    GnnTrainingWorker job running one epoch of that step (batches of
+    TU_WORKER_BATCH) and a job that fails on the card (features of the
+    wrong width)."""
+    tcfg = TrainConfig()
+    opt = adam(tcfg.learning_rate)
+    step = make_train_step(cfg, opt, tcfg)
+    edges = int(graph.nbr_mask.sum())
+    tm = TrainingMetrics(edges_per_step=edges)
+    gen = torch.Generator().manual_seed(3)
+    p, state, losses = params, opt.init(params), []
+    for i in range(TU_METRIC_STEPS + 1):
+        anchors = torch.randperm(graph.num_nodes, generator=gen)[:tcfg.batch_size].int()
+        negs = sample_negatives(gen, graph, anchors, tcfg.n_negatives)
+        args = (p, state, feats, graph, anchors.to(DEV), negs.to(DEV))
+        p, state, loss = tm.timed_step(step, *args) if i else step(*args)
+        losses.append(float(loss))
+    if tm.steps.get() != TU_METRIC_STEPS or not np.isclose(tm.loss_sum.get(), sum(losses[1:])):
+        raise AssertionError("TrainingMetrics did not record the steps")
+    out = {"metrics_edges_per_s": tm.edges_per_second(),
+           "metrics_step_ms": round(edges / tm.edges_per_second() * 1e3, 3)}
+
+    wcfg = TrainConfig(batch_size=TU_WORKER_BATCH)
+    wstep = make_train_step(cfg, opt, wcfg)
+    narrow = feats[:, : feats.shape[1] // 2]
+
+    def train_fn(collection, epochs):
+        x = narrow if collection == "wrong_width" else feats
+        tr, st = params, opt.init(params)
+        for _ in range(epochs):
+            tr, st, loss = train_epoch(wstep, tr, st, x, graph, wcfg,
+                                       torch.Generator().manual_seed(4))
+        return tr, loss
+
+    worker = GnnTrainingWorker(train_fn)
+    try:
+        t0 = time.perf_counter()
+        job = worker.wait(worker.enqueue("bench", epochs=1), timeout=600)
+        out["worker_epoch_s"] = round(time.perf_counter() - t0, 3)
+        bad = worker.wait(worker.enqueue("wrong_width"), timeout=600)
+    finally:
+        worker.shutdown()
+    ok = (job.status is JobStatus.DONE and np.isfinite(job.loss)
+          and worker.model("bench") is not None and bad.status is JobStatus.FAILED
+          and bool(bad.error))
+    say("worker", jobs=2, epoch_status=job.status.value, epoch_loss=job.loss,
+        steps=graph.num_nodes // TU_WORKER_BATCH, failing_status=bad.status.value,
+        failing_error=json.dumps(bad.error[:80]), ok=ok)
+    if not ok:
+        raise AssertionError("the training worker's jobs did not end as expected")
+    return out
+
+
+def _profiler(params, cfg, fpad, bdg, layer_ms: float) -> dict:
+    """Profiler.region around the fused K1 layer TU_PROFILE_ITERS times:
+    its p50 within 10% + 0.05 ms of the CUDA-event layer time shows that
+    the region waits for the card (the same region without the wait reads
+    the launch alone); the allocator's peak; one trace."""
+    layer = lambda: ruvector_layer_apply_block_dense_fused(params, cfg, fpad, bdg)  # noqa: E731
+    prof = Profiler()
+    for sync in (True, False):
+        name = "k1_layer" if sync else "k1_layer_no_sync"
+        for _ in range(TU_PROFILE_ITERS):
+            torch.cuda.synchronize()
+            with prof.region(name, sync=sync) as holder:
+                holder.append(layer())
+    torch.cuda.synchronize()
+    summary = prof.summary()
+    p50 = summary["k1_layer"]["p50_ms"]
+    ok = abs(p50 - layer_ms) <= 0.1 * layer_ms + 0.05
+    say("agree", name="Profiler.region p50 vs CUDA-event layer_ms", region_p50_ms=p50,
+        layer_ms=layer_ms, tol="10% + 0.05 ms", ok=ok)
+    if not ok:
+        raise AssertionError("the profiler's region does not time the card's work")
+    stats = Profiler.device_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        with prof.xla_trace(tmp):
+            layer()
+            torch.cuda.synchronize()
+        trace = [f for f in os.listdir(tmp) if f.endswith(".pt.trace.json")]
+        if len(trace) != 1:
+            raise AssertionError(f"xla_trace wrote {trace}")
+        with open(os.path.join(tmp, trace[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    return {"region_p50_ms": p50, "region_no_sync_p50_ms": summary["k1_layer_no_sync"]["p50_ms"],
+            "profiled_layer_ms": layer_ms,
+            "peak_allocated_gb": round(stats["allocated_bytes.all.peak"] / 1e9, 3),
+            "trace_events": len(events), "trace_kernel_events": len(kernel_events),
+            "trace_kernel_us": round(sum(e.get("dur", 0) for e in kernel_events), 1)}
+
+
+def _checkpoints(gparams, tmp: str) -> dict:
+    """save/restore_checkpoint and AsyncShardedCheckpointer on config 5's
+    parameters (2 layers, dim 128): restored bit for bit."""
+    proto = tree_map(torch.zeros_like, gparams)
+
+    def same(tree) -> bool:
+        return all(torch.equal(a, b) for a, b in zip(tree_leaves(tree), tree_leaves(gparams)))
+
+    t0 = time.perf_counter()
+    save_checkpoint(f"{tmp}/ckpt", gparams, step=1)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    restored, restore_ms = _synced_ms(lambda: restore_checkpoint(f"{tmp}/ckpt", proto, step=1))
+    ck = AsyncShardedCheckpointer(f"{tmp}/async")
+    t0 = time.perf_counter()
+    ck.save(gparams, step=1)
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    ck.wait_until_finished()
+    async_ms = (time.perf_counter() - t0) * 1e3
+    restored_async = ck.restore(proto, step=1)
+    on_device = all(t.device.type == DEV.type for t in tree_leaves(restored))
+    ok = same(restored) and same(restored_async) and on_device
+    n_bytes = nbytes(*tree_leaves(gparams))
+    say("equal", name="checkpoint round trips: config 5's parameters", leaves=len(
+        tree_leaves(gparams)), bytes=n_bytes, on_device=on_device, ok=ok)
+    if not ok:
+        raise AssertionError("a restored checkpoint differs from the saved parameters")
+    return {"ckpt_bytes": n_bytes, "ckpt_save_ms": save_ms, "ckpt_restore_ms": restore_ms,
+            "ckpt_async_snapshot_ms": snapshot_ms, "ckpt_async_total_ms": async_ms}
+
+
+def _cold_tier(feats_np: np.ndarray, feats: torch.Tensor, graph: NeighborGraph,
+               order: np.ndarray, tmp: str) -> dict:
+    """The features in a FeatureStorage on disk; one ColdTierTrainer epoch
+    in hyperbatches of TU_HYPERBATCH in the graph-grown (BFS) order, each
+    batch's contrastive loss (its rows as anchors, their kNN neighbours'
+    rows from the card as positives, 64 rows of the batch as negatives),
+    every streamed batch held equal to the card's rows; the same losses on
+    the CPU. Then an AdaptiveHotset pass over zipf accesses and an
+    MmapEmbeddingStore with a dirty flush."""
+    n, d = feats_np.shape
+    t0 = time.perf_counter()
+    fs = FeatureStorage.create(f"{tmp}/features.npy", dim=d, num_nodes=n)
+    fs.write_batch(np.arange(n), feats_np)
+    fs.flush()
+    out = {"storage_write_s": round(time.perf_counter() - t0, 3)}
+    negs = torch.randint(0, TU_HYPERBATCH, (TU_HYPERBATCH, 64),
+                         generator=torch.Generator().manual_seed(5))
+
+    def loss_on(x, ids, table, nbr_idx, nbr_mask, neg):
+        ids_t = torch.from_numpy(ids).to(x.device)
+        nbr = nbr_idx[ids_t].long()
+        return batched_info_nce(x, table[nbr], x[neg[: len(ids)] % len(ids)], 0.07,
+                                nbr_mask[ids_t])
+
+    mismatched = []
+    negs_dev = negs.to(DEV)
+
+    def step(ids, x):
+        mismatched.append(int((x != feats[torch.from_numpy(ids).to(DEV)]).any()))
+        return loss_on(x, ids, feats, graph.nbr_idx, graph.nbr_mask, negs_dev)
+
+    trainer = ColdTierTrainer(fs, HyperbatchConfig(batch_size=TU_HYPERBATCH), order, DEV)
+    stats = trainer.train_epoch(step)
+    if sum(mismatched) or stats.batches != -(-n // TU_HYPERBATCH):
+        raise AssertionError(f"cold tier: {sum(mismatched)} batches differ from the stored rows")
+    cpu_graph = _graph_cpu(graph)
+    cpu_losses = [float(loss_on(torch.from_numpy(fs.read_batch(order[s: s + TU_HYPERBATCH])),
+                                order[s: s + TU_HYPERBATCH], torch.from_numpy(feats_np),
+                                cpu_graph.nbr_idx, cpu_graph.nbr_mask, negs))
+                  for s in range(0, n, TU_HYPERBATCH)]
+    agree_scaled("cold-tier epoch loss: card vs CPU", torch.tensor([stats.loss]),
+                 torch.tensor([float(np.mean(cpu_losses))]), torch.float32)
+    hidden = 1.0 - stats.copy_wait_s / stats.copy_time_s if stats.copy_time_s > 0 else 0.0
+    # the host-to-card rate of one hyperbatch from pinned memory, alone
+    pinned = torch.empty((TU_HYPERBATCH, d), pin_memory=DEV.type == "cuda")
+    on_dev = torch.empty((TU_HYPERBATCH, d), device=DEV)
+    copy_ms = kernel_ms(lambda: on_dev.copy_(pinned, non_blocking=True))
+    out["h2d_gb_per_s"] = nbytes(pinned) / (copy_ms * 1e-3) / 1e9
+    out.update(batches=stats.batches, io_time_s=stats.io_time_s,
+               compute_time_s=stats.compute_time_s, copy_time_s=stats.copy_time_s,
+               copy_wait_s=stats.copy_wait_s, copy_hidden_share=hidden, epoch_loss=stats.loss)
+
+    hot = AdaptiveHotset(TU_HOT_CAP)
+    accesses = np.random.default_rng(6).zipf(1.3, TU_HOT_ACCESSES) % n
+    hits = 0
+    t0 = time.perf_counter()
+    for node in accesses:
+        hits += int(int(node) in hot.cache)
+        hot.access(int(node), lambda i: torch.from_numpy(fs.read_batch([i])[0]).to(DEV))
+    torch.cuda.synchronize()
+    hot_s = time.perf_counter() - t0
+    cached = sorted(hot.cache)
+    equal_cpu("hotset rows", torch.stack([hot.cache[i] for i in cached]),
+              torch.from_numpy(feats_np[cached]))
+    out.update(hotset_hit_rate=hits / TU_HOT_ACCESSES, hotset_cached=len(cached),
+               hotset_us_per_access=round(hot_s / TU_HOT_ACCESSES * 1e6, 2))
+
+    store = MmapEmbeddingStore(f"{tmp}/emb.bin", num_nodes=n, dim=d, create=True)
+    store.set_batch(np.arange(n), feats_np)
+    t0 = time.perf_counter()
+    full_pages = store.flush_dirty()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    rows = np.random.default_rng(7).choice(n, TU_MMAP_DIRTY, replace=False)
+    store.set_batch(rows, store.get_batch(rows) * 2.0)
+    t0 = time.perf_counter()
+    dirty_pages = store.flush_dirty()
+    dirty_ms = (time.perf_counter() - t0) * 1e3
+    store.close()
+    want = feats_np.copy()
+    want[rows] *= 2.0
+    reread = MmapEmbeddingStore(f"{tmp}/emb.bin", num_nodes=n, dim=d).get_batch(np.arange(n))
+    if not np.array_equal(reread, want):
+        raise AssertionError("the mmap store reads back other values")
+    out.update(mmap_full_flush_pages=full_pages, mmap_full_flush_ms=full_ms,
+               mmap_dirty_rows=TU_MMAP_DIRTY, mmap_dirty_pages=dirty_pages,
+               mmap_dirty_flush_ms=dirty_ms)
+    return out
+
+
+def phase_training_utils(params, cfg, gparams, feats_np: np.ndarray, feats: torch.Tensor,
+                         graph: NeighborGraph, order: np.ndarray, fpad, bdg) -> None:
+    """The training utilities on the 100k-node graph (`[training_utils]`):
+    mining, the spectral regularizer, TrainingMetrics around the
+    contrastive step, the training worker, the profiler around the K1
+    layer, checkpoints of config 5's parameters, and the cold tier (disk
+    features streamed in hyperbatches), the hotset and the mmap store;
+    each checked against the CPU or read back."""
+    t_phase = time.perf_counter()
+    d, heads = feats.shape[1], cfg.heads
+    fields = _mining(feats, graph)
+    fields.update(_spectral(RuvectorLayerConfig(d, d, heads=heads)))
+    fields.update(_train_metrics_and_worker(params, cfg, feats, graph))
+    layer_ms = time_ms(lambda: ruvector_layer_apply_block_dense_fused(params, cfg, fpad, bdg),
+                       iters=10)
+    fields.update(_profiler(params, cfg, fpad, bdg, layer_ms))
+    with tempfile.TemporaryDirectory() as tmp:
+        fields.update(_checkpoints(gparams, tmp))
+        fields.update(_cold_tier(feats_np, feats, graph, order, tmp))
+    say("training_utils", nodes=graph.num_nodes, d=d, anchors=TU_ANCHORS,
+        negatives=TU_NEGATIVES, hyperbatch=TU_HYPERBATCH,
+        **{k: round(v, 6) if isinstance(v, float) else v for k, v in fields.items()},
+        seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def train_report(c5: dict, halo: dict, gparams, gcfg) -> list:
     """Report rows of the training kernels: K5a and K5b at the train
     step's shapes (layer 0's normalized input, init masks, every
@@ -3842,6 +4451,14 @@ def serve_report(rr: dict, sp: dict) -> list:
     return rows
 
 
+def config5_config(d: int, heads: int) -> gated.GatedGraphTransformerConfig:
+    """Config 5: dim 128, 4 heads, FFN x4, 2 layers, lam 0.5, eps 0.01,
+    hysteresis band 0.05, budget nB/16, bf16 compute on f32 features."""
+    return gated.GatedGraphTransformerConfig(
+        dim=d, num_heads=heads, ffn_mult=4, num_layers=2, lam=0.5, eps=0.01,
+        hysteresis_band=0.05, max_resolve_frac=1 / 16, compute_dtype="bfloat16")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -3851,11 +4468,7 @@ def main() -> int:
     cfg = RuvectorLayerConfig(d, d, heads=heads, compute_dtype="bfloat16")
     params = ruvector_layer_init(0, cfg, device=DEV)
     k1_f32_grade_err = phase_parity(params, cfg)
-    # config 5: dim 128, 4 heads, FFN x4, 2 layers, lam 0.5, eps 0.01,
-    # hysteresis band 0.05, budget nB/16, bf16 compute on f32 features
-    gcfg = gated.GatedGraphTransformerConfig(
-        dim=d, num_heads=heads, ffn_mult=4, num_layers=2, lam=0.5, eps=0.01,
-        hysteresis_band=0.05, max_resolve_frac=1 / 16, compute_dtype="bfloat16")
+    gcfg = config5_config(d, heads)
     gparams = gated.gated_graph_transformer_init(0, gcfg, device=DEV)
     phase_gated_parity(gparams, gcfg)
     phase_train_parity(gparams, gcfg)
@@ -3863,25 +4476,17 @@ def main() -> int:
 
     # --- main path: the bench's headline route ------------------------------
     t0 = time.perf_counter()
-    feats_np = bench_features(N_NODES, d)
+    feats_np, labels = bench_clusters(N_NODES, d)
     graph = build_knn_graph(feats_np, k=k, block=2048, device=DEV)
     torch.cuda.synchronize()
     t_knn = time.perf_counter() - t0
-    idx = graph.nbr_idx.cpu().numpy()
-    mask = graph.nbr_mask.cpu().numpy()
-    ew = graph.edge_weight.cpu().numpy()
     t0 = time.perf_counter()
-    perm, leaves = graph_grow_blocks(idx, mask, leaf_size=512)
-    inv = np.empty(N_NODES, np.int64)
-    inv[perm] = np.arange(N_NODES)
-    bdg = build_block_dense(inv[idx[perm]].astype(np.int32), mask[perm], ew[perm],
-                            leaf_sizes=leaves, dtype=torch.float32, device=DEV)
+    perm, bdg, fpad = block_layout(feats_np, graph)
     t_layout = time.perf_counter() - t0
-    edges = int(mask.sum())
+    edges = int(graph.nbr_mask.sum())
     say("graph", nodes=N_NODES, k=k, edges=edges, knn_s=round(t_knn, 3),
         layout_s=round(t_layout, 3), nB=bdg.n_blocks, B=bdg.block, T=bdg.table,
         halo_ok=bdg.table <= 2 * bdg.block)
-    fpad = bdg.pad_features(torch.from_numpy(feats_np[perm]).to(DEV))
 
     def main_path():
         x = fpad
@@ -3946,6 +4551,8 @@ def main() -> int:
         launches[name] = train_launches.get(name, 0) + c5_halo["launches"][name]
     launches["block_gate_signature"] = 0
     phase_contrastive(params, cfg, feats, graph)
+    phase_sona(feats, graph, labels)
+    phase_training_utils(params, cfg, gparams, feats_np, feats, graph, perm, fpad, bdg)
 
     # --- serving: the query engine, the re-rank (K8), the CSR SpMM path (K9)
     launches["fused_neighbor_mix"] += phase_serve(feats_np, feats, graph, d, heads)
@@ -4064,9 +4671,10 @@ def main() -> int:
 
 
 # the phases that run alone (`python3 chip_smoke.py solver
-# graph_transformer_rest`): plain PyTorch on the 100k-node graph, no kernel
-# build, for iterating on them without the whole script
-PHASES_ALONE = ("solver", "graph_transformer_rest")
+# graph_transformer_rest sona training_utils`): plain PyTorch on the
+# 100k-node graph, for iterating on them without the whole script; only
+# `training_utils` builds a kernel (K1's source, for its profiled layer)
+PHASES_ALONE = ("solver", "graph_transformer_rest", "sona", "training_utils")
 
 
 def phases_alone(names: list[str]) -> int:
@@ -4077,15 +4685,23 @@ def phases_alone(names: list[str]) -> int:
                          f"{', '.join(PHASES_ALONE)}")
     phase_device()
     d, k, heads = 128, 16, 4
-    feats_np = bench_features(N_NODES, d)
+    feats_np, labels = bench_clusters(N_NODES, d)
     graph = build_knn_graph(feats_np, k=k, block=2048, device=DEV)
-    perm, _ = graph_grow_blocks(graph.nbr_idx.cpu().numpy(), graph.nbr_mask.cpu().numpy(),
-                                leaf_size=512)
+    feats = torch.from_numpy(feats_np).to(DEV)
+    perm, bdg, fpad = block_layout(feats_np, graph)
     if "solver" in names:
         phase_solver(graph)
     if "graph_transformer_rest" in names:
-        phase_graph_transformer_rest(torch.from_numpy(feats_np).to(DEV), graph,
-                                     perm[:GT_ROWS], d, heads)
+        phase_graph_transformer_rest(feats, graph, perm[:GT_ROWS], d, heads)
+    if "sona" in names:
+        phase_sona(feats, graph, labels)
+    if "training_utils" in names:
+        say("build_sources", **{k: round(v, 1) for k, v in _lib.build(("block_dense_attn",)).items()})
+        cfg = RuvectorLayerConfig(d, d, heads=heads, compute_dtype="bfloat16")
+        phase_training_utils(ruvector_layer_init(0, cfg, device=DEV), cfg,
+                             gated.gated_graph_transformer_init(0, config5_config(d, heads),
+                                                                device=DEV),
+                             feats_np, feats, graph, perm, fpad, bdg)
     return 0
 
 

@@ -14,5 +14,28 @@ This package imports torch and numpy only — never jax, and nothing of
 
 from ruvector_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
 __version__ = "0.1.0"
+
+# the graph types, resolved on first use like the subpackages, so that
+# `import ruvector_tpu_torch` loads none of them
+_GRAPH_NAMES = ("NeighborGraph", "CSRGraph", "build_knn_graph")
+_SUBPACKAGES = frozenset({
+    "graph", "ops", "nn", "attention", "models", "transformer", "graph_transformer",
+    "training", "sona", "solver", "parallel", "index", "serve", "utils",
+})
+
+__all__ = ["NeighborGraph", "CSRGraph", "build_knn_graph", "resolve_device", "__version__"]
+
+
+def __getattr__(name):
+    """Lazy access to the graph types and the subpackages
+    (`ruvector_tpu_torch.models`, `.sona`, ...) without importing them at
+    `import ruvector_tpu_torch`."""
+    import importlib
+
+    if name in _GRAPH_NAMES:
+        return getattr(importlib.import_module("ruvector_tpu_torch.graph"), name)
+    if name in _SUBPACKAGES:
+        return importlib.import_module(f"ruvector_tpu_torch.{name}")
+    raise AttributeError(f"module 'ruvector_tpu_torch' has no attribute {name!r}")
+

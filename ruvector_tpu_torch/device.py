@@ -24,3 +24,23 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "ruvector_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run on the CPU")
     return dev
+
+
+def block_until_ready(tree):
+    """Wait until the work that produces the tensors of `tree` (a tensor, or
+    dicts, lists and tuples of them) has finished on their devices, as
+    `jax.block_until_ready` does; returns `tree`. CUDA launches return
+    before the card has run them, so a host clock read after a call
+    measures its enqueue unless this comes first. CPU tensors need no wait."""
+    stack, devices = [tree], set()
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif isinstance(node, torch.Tensor) and node.device.type == "cuda":
+            devices.add(node.device)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    return tree

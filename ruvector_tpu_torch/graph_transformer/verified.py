@@ -25,6 +25,7 @@ import torch
 from ruvector_tpu_torch.training.optimizers import (
     Optimizer,
     apply_updates,
+    sorted_leaves,
     tree_leaves,
     tree_unflatten,
 )
@@ -108,16 +109,6 @@ class TrainingCertificate:
     final_weights_hash: str
     chain_hash: str
     invariants: list[str]
-
-
-def sorted_leaves(tree) -> list:
-    """The tensors of a pytree in JAX's leaf order: dict keys sorted,
-    lists and tuples in order."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for t in tree for leaf in sorted_leaves(t)]
-    return [tree]
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -5,6 +5,12 @@
 (`temporal_tensor`, `temporal_tiers`) and the hand-written CUDA kernels
 (`kernels`)."""
 
+from ruvector_tpu_torch.ops.distance import (
+    cosine_similarity,
+    pairwise_cosine,
+    pairwise_dot,
+    pairwise_euclidean,
+)
 from ruvector_tpu_torch.ops.segment import (
     masked_softmax,
     masked_weighted_mean,
@@ -16,6 +22,7 @@ from ruvector_tpu_torch.ops.segment import (
 )
 from ruvector_tpu_torch.ops.spmm_bucketed import BucketPlan, build_bucket_plan, spmm_bucketed
 
-__all__ = ["BucketPlan", "build_bucket_plan", "masked_softmax", "masked_weighted_mean",
+__all__ = ["BucketPlan", "build_bucket_plan", "cosine_similarity", "masked_softmax",
+           "masked_weighted_mean", "pairwise_cosine", "pairwise_dot", "pairwise_euclidean",
            "sddmm_csr", "sddmm_padded", "segment_softmax_csr", "spmm_bucketed", "spmm_csr",
            "spmm_padded"]

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import torch
 
-from ruvector_tpu_torch.attention.mincut_device import mincut_gate_stats
 from ruvector_tpu_torch.ops.kernels import _lib
 from ruvector_tpu_torch.ops.kernels.gated_block_attn import (
     DMMA_MAX_B,
@@ -123,6 +122,10 @@ def gate_from_logits(lg, *, lam: float, eps: float):
     (keep [K, B/32, B] int32 words, stats [K, 8, B] float32 with rows 0..3
     = cut cost (0 if not applied), flow, applied flag, push-relabel
     rounds)."""
+    # imported here: the attention package imports the training package,
+    # which imports the layers that import these kernels
+    from ruvector_tpu_torch.attention.mincut_device import mincut_gate_stats
+
     k, b, _ = lg.shape
     keep, cost, flow, applied, rounds = mincut_gate_stats(lg, lam, eps)
     stats = torch.zeros((k, 8, b), dtype=torch.float32, device=lg.device)

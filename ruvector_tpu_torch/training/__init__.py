@@ -1,6 +1,7 @@
-"""Training: losses, optimizers, schedules, EWC, replay and the contrastive
-train step (port of ruvector_tpu/training; `mining`, `worker` and
-`metrics_hook` are not ported yet)."""
+"""Training: losses, optimizers, schedules, EWC, replay, the contrastive
+train step, negative mining and curricula (`mining`), the background job
+worker (`worker`) and the training metrics (`metrics_hook`); port of
+ruvector_tpu/training."""
 
 from ruvector_tpu_torch.training.ewc import (
     EWCState,
@@ -19,6 +20,7 @@ from ruvector_tpu_torch.training.losses import (
     local_contrastive_loss,
     mse_loss,
 )
+from ruvector_tpu_torch.training.metrics_hook import TrainingMetrics
 from ruvector_tpu_torch.training.optimizers import (
     Optimizer,
     adam,
@@ -50,7 +52,7 @@ from ruvector_tpu_torch.training.train import (
 
 __all__ = [
     "EWCState", "OnlineConfig", "Optimizer", "ReduceOnPlateau", "ReplayBuffer", "ReplayEntry",
-    "TrainConfig", "adam", "adamw", "apply_updates", "batched_info_nce",
+    "TrainConfig", "TrainingMetrics", "adam", "adamw", "apply_updates", "batched_info_nce",
     "binary_cross_entropy_loss", "constant_schedule", "contrastive_loss_fn",
     "cosine_annealing_schedule", "cross_entropy_loss", "ewc_compute_fisher", "ewc_consolidate",
     "ewc_fisher_from_batch", "ewc_gradient", "ewc_init", "ewc_penalty", "exponential_schedule",

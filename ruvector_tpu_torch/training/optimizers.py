@@ -37,6 +37,16 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def sorted_leaves(tree) -> list:
+    """The tensors of a pytree in JAX's leaf order (`jax.tree_util.
+    tree_leaves`): dict keys sorted, lists and tuples in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in sorted_leaves(t)]
+    return [tree]
+
+
 def tree_unflatten(tree, leaves):
     """A pytree shaped like `tree` holding `leaves` (tree_leaves order)."""
     it = iter(leaves)

@@ -78,6 +78,9 @@ from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_f
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
 from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather
 from ruvector_tpu_torch.solver import BmsspSolver, TrueSolver, cg_solve, forward_push_ppr
+from ruvector_tpu_torch.sona import BaseLoRA, MicroLoRA, SonaEngine
+from ruvector_tpu_torch.sona.federated import FederatedAggregator
+from ruvector_tpu_torch.training.mining import in_batch_negatives
 from ruvector_tpu_torch.transformer import (
     Decoder,
     GatePacket,
@@ -95,8 +98,20 @@ from ruvector_tpu_torch.transformer import (
 )
 from ruvector_tpu_torch.transformer.mamba import MambaConfig, mamba_init, mamba_state_init
 from ruvector_tpu_torch.transformer.train_spec import train_early_exit
+from ruvector_tpu_torch.utils.cold_tier import ColdTierTrainer, HyperbatchConfig, HyperbatchIterator
+from ruvector_tpu_torch.utils.profiler import Profiler
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+class _Rows:
+    """A 4 x 2 feature store in memory (FeatureStorage's read interface)."""
+
+    num_nodes, dim = 4, 2
+
+    def read_batch(self, ids):
+        return np.zeros((len(ids), 2), np.float32)
+
 # the transformer's entry points at a tiny width (2 layers, hidden 16)
 _TINY = TransformerConfig(seq_len_max=16, hidden=16, heads=2, layers=2, window_normal=4,
                           window_degraded=2, logits=32, vocab=32, layers_degraded=1,
@@ -128,6 +143,12 @@ for mod in ("solver.iterative", "solver.push", "solver.bmssp", "solver.true_solv
             "graph_transformer.temporal", "graph_transformer.economic",
             "graph_transformer.verified"):
     assert "ruvector_tpu_torch." + mod in names, mod
+for mod in ("utils.metrics", "utils.monitoring", "utils.profiler", "utils.checkpoint",
+            "utils.mmap_store", "utils.cold_tier", "training.metrics_hook", "training.mining",
+            "training.worker", "sona", "sona.types", "sona.trajectory", "sona.lora",
+            "sona.ewc_pp", "sona.reasoning_bank", "sona.engine", "sona.federated",
+            "sona.export"):
+    assert "ruvector_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -141,14 +162,30 @@ def test_imports_no_jax_and_no_jax_package():
     The walk covers every module, the training package, the distance ops,
     the serving path, the K8/K9 wrappers, the GNN model family, the whole
     attention family, the witness log, the quantization ops, the 19
-    modules of the min-cut-gated transformer, the solvers and the rest of
-    the graph transformers included."""
+    modules of the min-cut-gated transformer, the solvers, the rest of
+    the graph transformers, SONA, mining, the worker and the host
+    utilities included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 113
+    assert int(count) >= 131
     assert bad == "[]"
+
+
+# modules whose first import in a fresh process once closed an import
+# cycle (the kernels' wrappers, the attention package, the training
+# package and the layers that import the kernels)
+_FIRST_IMPORTS = ("nn.ruvector_layer", "nn.block_dense_layer", "training.train",
+                  "ops.kernels.mincut_gate_block", "models.ruvector_net", "sona.engine",
+                  "training.mining", "utils.cold_tier")
+
+
+@pytest.mark.parametrize("mod", _FIRST_IMPORTS)
+def test_module_imports_first_in_a_fresh_process(mod):
+    out = subprocess.run([sys.executable, "-c", f"import ruvector_tpu_torch.{mod}"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def _no_card():
@@ -206,6 +243,14 @@ _ENTRY_POINTS = {
     "graph_transformer_init": lambda: graph_transformer_init(0, GraphTransformerConfig(dim=8)),
     "BmsspSolver": lambda: BmsspSolver(),
     "MorphogeneticField.init_state": lambda: MorphogeneticField().init_state(4),
+    "SonaEngine": lambda: SonaEngine(8),
+    "MicroLoRA": lambda: MicroLoRA(8),
+    "BaseLoRA": lambda: BaseLoRA(8, 2),
+    "FederatedAggregator": lambda: FederatedAggregator(8),
+    "in_batch_negatives": lambda: in_batch_negatives(4),
+    "Profiler.device_memory_stats": lambda: Profiler.device_memory_stats(),
+    "HyperbatchIterator": lambda: HyperbatchIterator(_Rows(), HyperbatchConfig(2)),
+    "ColdTierTrainer": lambda: ColdTierTrainer(_Rows(), HyperbatchConfig(2)),
 }
 
 
