@@ -89,6 +89,26 @@ card:
     batched decoding, the gate's tier programs on the int8 route, the
     tiered KV cache through every tier and the subsystems, each against
     the CPU.
+  * the port's native runtime (`[native]`): its g++ build, config 5's
+    layout by the device fill and the Python route (equal),
+    GraphSAGE's fanout draws and the min-cut gate by the native and the
+    Python routes.
+  * the vector database (`[index]`) on the 100k corpus: the serial HNSW
+    build, 1,000 searches against the flat index's exact top-10, payload
+    filters by both routes, the index's level-0 graph through `[serve]`'s
+    K3 stack (K3's warp body at the index's widest list) and the
+    hierarchical forward, BASELINE.md row 1's operating point, the
+    hyperbolic index's pruned search against its exact one and a save/load
+    round trip.
+  * the property graph (`[graph_store]`): the 100k kNN graph with its
+    1.6M edges, Cypher queries against the arrays' answers, writes and a
+    rolled-back transaction, its CSR through the CSR SpMM and its padded
+    lowering through the K3 stack.
+  * the min-cut toolkit (`[mincut]`, host maintainers): the global
+    maintainer at 500k nodes, the s-t one at 100k, the Python maintainer
+    against the native one, local cuts on the bench graph's CSR on the
+    card, and the expander, j-tree and sparsifier (CG on the card) on one
+    cluster's neighbourhood, each against the CPU.
 
 Prints one line per phase, the card's name and power limit, a `kernels`
 JSON line (launches on the main paths, error against the plain version,
@@ -100,6 +120,7 @@ package beside this script.
     python3 chip_smoke.py
     python3 chip_smoke.py solver graph_transformer_rest    (those phases alone)
     python3 chip_smoke.py sona training_utils              (those phases alone)
+    python3 chip_smoke.py native index graph_store mincut  (those phases alone)
 """
 
 from __future__ import annotations
@@ -115,6 +136,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -165,8 +187,10 @@ from ruvector_tpu_torch.attention.transport import TransportConfig  # noqa: E402
 from ruvector_tpu_torch.graph import (  # noqa: E402
     CSRGraph,
     NeighborGraph,
+    PropertyGraph,
     build_block_dense,
     build_knn_graph,
+    execute_cypher,
 )
 from ruvector_tpu_torch.attention.hyperbolic import poincare_distance  # noqa: E402
 from ruvector_tpu_torch.graph_transformer import (  # noqa: E402
@@ -214,7 +238,27 @@ from ruvector_tpu_torch.graph_transformer.economic import (  # noqa: E402
 )
 from ruvector_tpu_torch.graph_transformer.sublinear import lsh_planes  # noqa: E402
 from ruvector_tpu_torch.graph_transformer.verified import sorted_leaves  # noqa: E402
-from ruvector_tpu_torch.index import FlatIndex  # noqa: E402
+from ruvector_tpu_torch import native  # noqa: E402
+from ruvector_tpu_torch.index import (  # noqa: E402
+    DbOptions,
+    FlatIndex,
+    HnswConfig,
+    HnswIndex,
+    HyperbolicIndex,
+    VectorDB,
+)
+from ruvector_tpu_torch.index.filter import candidate_ids, parse_qdrant_filter  # noqa: E402
+from ruvector_tpu_torch.index.hyperbolic_hnsw import HyperbolicConfig  # noqa: E402
+from ruvector_tpu_torch.mincut import (  # noqa: E402
+    DynamicMinCut,
+    JTree,
+    cut_value,
+    expander_decompose,
+    local_cluster,
+    local_k_cut,
+    spectral_sparsify,
+)
+from ruvector_tpu_torch.mincut.sparsify import effective_resistances  # noqa: E402
 from ruvector_tpu_torch.models import (  # noqa: E402
     GATConfig,
     GCNConfig,
@@ -348,6 +392,7 @@ from ruvector_tpu_torch.serve import (  # noqa: E402
     QueryMode,
     RuvectorQuery,
     attention_rerank,
+    hierarchical_forward,
     retrieve_and_rerank,
 )
 from ruvector_tpu_torch.solver import (  # noqa: E402
@@ -462,6 +507,7 @@ from ruvector_tpu_torch.utils.mmap_store import MmapEmbeddingStore  # noqa: E402
 from ruvector_tpu_torch.utils.profiler import Profiler  # noqa: E402
 
 DEV = torch.device("cuda")
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 N_NODES = 100_000   # bench.py's headline graph
 ITERS = 3           # layer applications on the main path, each on its own output
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -653,6 +699,34 @@ SN_TRAJ, SN_LEARN_EVERY, SN_APPLY_ROWS, SN_PEER_TRAJ = 4096, 1024, 1024, 1024
 # worker's one-epoch job; the profiled K1 layer calls; the cold tier's
 # hyperbatch, the hotset's capacity and accesses, the mmap store's dirty rows
 TU_ANCHORS, TU_NEGATIVES, TU_IN_BATCH = 1024, 16, 1024
+# the native runtime (`[native]`): GraphSAGE's fanout, and the sequences of
+# the min-cut gate that the Python Dinic also cuts at each lam (half the
+# first ones, half the first the native gate cut; 0.2 s a sequence on the
+# host: all 390 at two lams would take ~160 s)
+NT_FANOUT, NT_PY_SEQS = 10, 16
+# the vector database (`[index]`) over the main path's corpus: queries, k,
+# query noise, the queries of the filtered and the hierarchical searches,
+# BASELINE.md row 1's corpus (rows, width, centres, queries:
+# benchmarks/hnsw_parity.py's clustered set), the hyperbolic queries, those
+# of them the CPU repeats when `[index]` runs alone, and the radius the
+# features are scaled to
+IX_QUERIES, IX_K, IX_NOISE, IX_FILTER_QUERIES, IX_HIER_QUERIES = 1000, 10, 0.05, 32, 8
+IX_BASE_N, IX_BASE_D, IX_BASE_CENTERS, IX_BASE_Q = 10_000, 384, 100, 1000
+IX_HYPER_QUERIES, IX_HYPER_CPU, IX_HYPER_RADIUS = 256, 64, 0.9
+# the min-cut toolkit (`[mincut]`): GLOBAL_MINCUT_SCALE_r05.json's 500k cell
+# (clusters, cluster size, seed; benchmarks/global_mincut_scale_r04.py) and
+# the updates streamed with a query after each; MINCUT_SCALE_r02.json's
+# 100k-node s-t row with all 2,000 of its updates on the native class, as
+# benchmarks/mincut_scale.py runs it, and the first MC_ST_FACADE through
+# DynamicMinCut (its query also lists the cut's edges, 55-85 ms on the
+# card's host); the 20k cell (400 x 50, seed 0) whose first
+# updates the Python maintainer repeats (~0.2 s an update on the host:
+# 2,000 would take ~400 s); the local cuts' seed and the neighbourhood of
+# one cluster for the expander, the j-tree and the sparsifier
+MC_GLOBAL_CL, MC_GLOBAL_SIZE, MC_GLOBAL_SEED, MC_GLOBAL_UPDATES = 10_000, 50, 1, 20_000
+MC_ST_NODES, MC_ST_UPDATES, MC_ST_FACADE = 100_000, 2_000, 20
+MC_PY_CL, MC_PY_SIZE, MC_PY_UPDATES = 400, 50, 50
+MC_LOCAL_SEED, MC_SPARSIFY_EPS = 0, 0.5
 TU_METRIC_STEPS, TU_WORKER_BATCH, TU_PROFILE_ITERS = 3, 8192, 10
 TU_HYPERBATCH, TU_HOT_CAP, TU_HOT_ACCESSES, TU_MMAP_DIRTY = 4096, 1024, 20_000, 4096
 
@@ -823,8 +897,19 @@ def ptxas_entries(text: str) -> list[dict]:
     return entries
 
 
+def _native_runtime() -> None:
+    """Build the port's native libraries with g++ (before any layout,
+    sampler or gate reads `native.available`), or fail: no phase may run
+    on the Python routes because the library did not build."""
+    if not native.available:
+        print(native.build_error, flush=True)
+        raise AssertionError("the native runtime did not build")
+    native.load_library("hnsw")
+
+
 def phase_build() -> None:
     seconds = _lib.build()
+    _native_runtime()
     spills = []
     for name in _lib.SOURCES:
         log = _lib.log_path(name)
@@ -3093,22 +3178,36 @@ def _train_metrics_and_worker(params, cfg, feats, graph) -> dict:
     return out
 
 
-def _profiler(params, cfg, fpad, bdg, layer_ms: float) -> dict:
+def _profiler(params, cfg, fpad, bdg) -> dict:
     """Profiler.region around the fused K1 layer TU_PROFILE_ITERS times:
     its p50 within 10% + 0.05 ms of the CUDA-event layer time shows that
     the region waits for the card (the same region without the wait reads
-    the launch alone); the allocator's peak; one trace."""
+    the launch alone); the allocator's peak; one trace. Each region's call
+    follows one timed by CUDA events, so both medians see the same state
+    of the card and its host."""
     layer = lambda: ruvector_layer_apply_block_dense_fused(params, cfg, fpad, bdg)  # noqa: E731
     prof = Profiler()
+    event_ms = []
+    layer()
     for sync in (True, False):
         name = "k1_layer" if sync else "k1_layer_no_sync"
         for _ in range(TU_PROFILE_ITERS):
+            if sync:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                layer()
+                end.record()
+                end.synchronize()
+                event_ms.append(start.elapsed_time(end))
             torch.cuda.synchronize()
             with prof.region(name, sync=sync) as holder:
                 holder.append(layer())
     torch.cuda.synchronize()
     summary = prof.summary()
     p50 = summary["k1_layer"]["p50_ms"]
+    layer_ms = statistics.median(event_ms)
     ok = abs(p50 - layer_ms) <= 0.1 * layer_ms + 0.05
     say("agree", name="Profiler.region p50 vs CUDA-event layer_ms", region_p50_ms=p50,
         layer_ms=layer_ms, tol="10% + 0.05 ms", ok=ok)
@@ -3264,9 +3363,7 @@ def phase_training_utils(params, cfg, gparams, feats_np: np.ndarray, feats: torc
     fields = _mining(feats, graph)
     fields.update(_spectral(RuvectorLayerConfig(d, d, heads=heads)))
     fields.update(_train_metrics_and_worker(params, cfg, feats, graph))
-    layer_ms = time_ms(lambda: ruvector_layer_apply_block_dense_fused(params, cfg, fpad, bdg),
-                       iters=10)
-    fields.update(_profiler(params, cfg, fpad, bdg, layer_ms))
+    fields.update(_profiler(params, cfg, fpad, bdg))
     with tempfile.TemporaryDirectory() as tmp:
         fields.update(_checkpoints(gparams, tmp))
         fields.update(_cold_tier(feats_np, feats, graph, order, tmp))
@@ -3395,8 +3492,7 @@ def phase_serve(feats_np: np.ndarray, feats, graph, d: int, heads: int) -> int:
     depth 1), each a corpus row plus SERVE_NOISE N(0, 1), and the flat index
     on the same queries. Returns K3's launches."""
     n = feats.shape[0]
-    cfg = RuvectorLayerConfig(d, d, heads=heads, use_pallas=True)
-    stack = [ruvector_layer_init(seed, cfg, device=DEV) for seed in (0, 1)]
+    cfg, stack = _k3_stack(d, heads)
     engine = QueryEngine(feats, graph, stack, [cfg, cfg])
     rng = np.random.default_rng(5)
     modes = (QueryMode.VECTOR_SEARCH, QueryMode.DIFFERENTIABLE_SEARCH, QueryMode.NEURAL_SEARCH,
@@ -4325,6 +4421,709 @@ def phase_transformer() -> None:
         kernel_launches=0, seconds=round(time.perf_counter() - t_phase, 1))
 
 
+# ---------------------------------------------------------------------------
+# the native runtime, the vector database, the property graph, the min-cut
+# toolkit (host workloads: the card does the layouts, the CSR and CG parts,
+# the GNN on the index's graph and the exact scoring)
+# ---------------------------------------------------------------------------
+
+def _python_route(fn):
+    """fn with the native runtime switched off: the Python routes."""
+    with mock.patch.object(native, "available", False):
+        return fn()
+
+
+def _equal_layouts(name: str, got, want) -> None:
+    """Two block-dense layouts: every table equal bit for bit."""
+    for field in ("local_ids", "degrees", "node_pad", "node_pos"):
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"{name}: {field} differs")
+    differ = int((got.wdense.float() != want.wdense.float()).sum())
+    say("equal", name=name, wdense_entries_differ=differ, ok=differ == 0)
+    if differ or got.log_mult is not None:
+        raise AssertionError(f"{name}: wdense differs")
+
+
+def _valid_draws(nbr: np.ndarray, mask: np.ndarray, idx: np.ndarray, smask: np.ndarray,
+                 fanout: int) -> None:
+    """Every drawn id is one of the node's neighbours, none twice, and a
+    node of degree <= fanout keeps all of them."""
+    real = mask > 0
+    picked = smask > 0
+    is_nbr = ((idx[:, :, None] == nbr[:, None, :]) & real[:, None, :]).any(2)
+    # distinct fill values where nothing was drawn, so only repeats match
+    srt = np.sort(np.where(picked, idx, -1 - np.arange(fanout)[None, :]), axis=1)
+    # as many distinct neighbours as min(degree, fanout): all of a small node's
+    ok = (bool((picked.sum(1) == np.minimum(real.sum(1), fanout)).all())
+          and bool(is_nbr[picked].all()) and bool((srt[:, 1:] != srt[:, :-1]).all()))
+    if not ok:
+        raise AssertionError("sample_fanout: a draw is not a neighbour, repeats, or drops one")
+
+
+def phase_native(feats: torch.Tensor, graph: NeighborGraph, d: int) -> None:
+    """The port's own native runtime (`[native]`): the library must build
+    (its g++ seconds and paths are printed); then each native route
+    against its Python route. Config 5's 999,936-node layout (uniform
+    256-node blocks) by the device fill and the Python route; GraphSAGE's
+    fanout draws on the 100k graph by both routes (each checked, the
+    forward run on the native draws against the CPU); the min-cut gate over the 390 sequences of `[attention_rest]` by
+    the native Dinic, and its first NT_PY_SEQS by the Python Dinic too."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    _native_runtime()
+    say("native", available=True, build_s=json.dumps(
+        {k: round(v, 3) for k, v in native.build_seconds.items()}, separators=(",", ":")),
+        libraries=",".join(os.path.relpath(native.library_path(n), REPO_DIR)
+                           for n in ("graph_runtime", "hnsw")))
+
+    # config 5's layout by the device fill and the Python route
+    _, idx, ew = cluster_graph(C5_NODES, d, C5_K)
+    idx, ew = idx.cpu().numpy(), ew.cpu().numpy()
+    ones = np.ones_like(ew)
+
+    def layout(**kw):
+        return build_block_dense(idx, ones, ew, block=C5_BLOCK, device=DEV, **kw)
+
+    ms = {}
+    fill, ms["device_fill"] = _synced_ms(layout)
+    python, ms["python"] = _synced_ms(lambda: _python_route(layout))
+    _equal_layouts("config5 layout: device fill vs Python route", fill, python)
+    del python
+    # bf16: the device fill's table is its f32 table rounded
+    _equal_layouts("config5 bf16 layout: device fill vs its f32 table rounded",
+                   layout(dtype=torch.bfloat16),
+                   dataclasses.replace(fill, wdense=fill.wdense.to(torch.bfloat16)))
+    del fill
+    torch.cuda.empty_cache()
+    say("native_layout", nodes=C5_NODES, block=C5_BLOCK,
+        layout_ms=json.dumps({k: round(v, 1) for k, v in ms.items()}, separators=(",", ":")))
+
+    # GraphSAGE's fanout draws
+    nbr, mask = graph.nbr_idx.cpu().numpy(), graph.nbr_mask.cpu().numpy()
+    (n_idx, n_mask), native_ms = _synced_ms(lambda: sample_fanout(graph, NT_FANOUT, seed=42))
+    (p_idx, p_mask), python_ms = _synced_ms(
+        lambda: _python_route(lambda: sample_fanout(graph, NT_FANOUT, seed=42)))
+    for i, m in ((n_idx, n_mask), (p_idx, p_mask)):
+        _valid_draws(nbr, mask, i.cpu().numpy(), m.cpu().numpy(), NT_FANOUT)
+    sage_cfg = GraphSAGENetConfig(in_features=d, hidden_features=d, out_features=d,
+                                  fanouts=(NT_FANOUT,))
+    sage_p = graphsage_net_init(0, sage_cfg, device=DEV)
+    lc = sage_cfg.layer_cfgs()[0]
+    out = graphsage_apply(sage_p[0], lc, feats, n_idx, n_mask)
+    agree_cpu("GraphSAGE layer on the native draws", out,
+              graphsage_apply(_tree_cpu(sage_p[0]), lc, feats.cpu(), n_idx.cpu(), n_mask.cpu()))
+    say("native_sampling", nodes=graph.num_nodes, fanout=NT_FANOUT, native_ms=native_ms,
+        python_ms=python_ms, ids_equal_across_routes=bool(torch.equal(n_idx, p_idx)))
+
+    # the min-cut gate: native against Python
+    k = feats.shape[0] // MC_SEQ
+    xs = feats[:k * MC_SEQ].reshape(k, MC_SEQ, d)
+    logits = (torch.matmul(xs, xs.transpose(1, 2)) / (d ** 0.5)).cpu().numpy()
+    costs = []
+
+    def gate(lam, seqs):
+        return [dynamic_min_cut(logits[i], MC_SEQ, lam, 2, MC_EPS) for i in seqs]
+
+    res = {}
+    res[0.5], native_ms = _synced_ms(lambda: gate(0.5, range(k)))
+    lam_cut = 1.0       # the smallest lam of 1, 2, 4, ... at which the gate cuts
+    while not any(r.cut_cost > 0 for r in res.setdefault(lam_cut, gate(lam_cut, range(k)))):
+        if lam_cut >= MC_LAM_MAX:
+            raise AssertionError(f"no gate cuts at lam up to {lam_cut}")
+        lam_cut *= 2
+    for lam in (0.5, lam_cut):
+        # the first sequences and the first that the native gate cut
+        cut_seqs = [i for i, r in enumerate(res[lam]) if r.cut_cost > 0]
+        seqs = sorted(set(range(NT_PY_SEQS // 2)) | set(cut_seqs[:NT_PY_SEQS // 2]))
+        py, py_ms = _synced_ms(lambda: _python_route(lambda: gate(lam, seqs)))
+        for i, b in zip(seqs, py):
+            a = res[lam][i]
+            if not np.array_equal(a.keep_mask, b.keep_mask) or \
+                    abs(a.cut_cost - b.cut_cost) > 1e-4 * max(1.0, abs(b.cut_cost)):
+                raise AssertionError(f"min-cut gate lam {lam} sequence {i}: native "
+                                     f"({a.cut_cost}) vs Python ({b.cut_cost})")
+        costs.append({"lam": lam, "cuts": len(cut_seqs), "python_checked": len(seqs),
+                      "python_checked_cuts": len(set(seqs) & set(cut_seqs)),
+                      "python_ms_per_seq": py_ms / len(seqs)})
+    say("native_mincut_gate", sequences=k, seq_len=MC_SEQ, native_ms_per_seq=native_ms / k,
+        lam_cut=lam_cut,
+        by_lam=json.dumps(costs, separators=(",", ":")), masks_equal=True)
+    after = kernels.launch_counts()
+    say("native_done", seconds=round(time.perf_counter() - t_phase, 1),
+        kernel_launches=sum(after[n] - before[n] for n in after))
+
+
+def _recall(ids: np.ndarray, truth: np.ndarray, k: int) -> float:
+    return float(np.mean([len(set(a[:k].tolist()) & set(b[:k].tolist())) / k
+                          for a, b in zip(ids, truth)]))
+
+
+def _k3_at(params, feats: torch.Tensor, g: NeighborGraph, heads: int):
+    """K3's call and its plain version's at a graph's shapes (layer 0 of a
+    stack, inputs as the `kernels` line builds them), its bound, and the
+    bound's time for the inputs as passed. The bound counts the gathered
+    rows of real slots only: a masked slot's row is padding that the
+    function needs not read (the HNSW graph fills 60% of its slots)."""
+    d = feats.shape[1]
+    hd = d // heads
+    wk = params["attn"]["k"]["kernel"].reshape(d, heads, hd)
+    bk = params["attn"]["k"]["bias"].reshape(heads, hd)
+    msg = linear_apply(params["w_msg"], feats)
+    q = linear_apply(params["attn"]["q"], msg).reshape(-1, heads, hd)
+    args = (torch.einsum("nhf,dhf->nhd", q, wk).contiguous(),
+            torch.einsum("nhf,hf->nh", q, bk).contiguous(),
+            msg[g.nbr_idx.long()].contiguous(), g.nbr_mask.contiguous(),
+            normalized_weights(g.edge_weight, g.nbr_mask).contiguous())
+    edges = int((g.nbr_mask > 0).sum())
+    ops = {torch.float32: 2 * (2 * heads + 1) * d * edges}
+    out = (heads + 1) * feats.shape[0] * d * 4
+    real_rows = edges * d * args[2].element_size()
+    return (lambda: fused_neighbor_mix(*args, heads=heads, scale=hd ** -0.5),
+            lambda: fused_neighbor_mix_reference(*args, heads=heads, scale=hd ** -0.5),
+            bound(nbytes(args[0], args[1], args[3], args[4]) + real_rows + out, ops),
+            bound(nbytes(*args) + out, ops)[0])
+
+
+def _k3_stack(d: int, heads: int):
+    """`[serve]`'s 2-layer f32 RuvectorLayer stack on the K3 route."""
+    cfg = RuvectorLayerConfig(d, d, heads=heads, use_pallas=True)
+    return cfg, [ruvector_layer_init(seed, cfg, device=DEV) for seed in (0, 1)]
+
+
+def _apply_stack(stack, cfg, x, g):
+    for p in stack:
+        x = ruvector_layer_apply(p, cfg, x, g)
+    return x
+
+
+def phase_index(feats_np: np.ndarray, feats: torch.Tensor, labels: np.ndarray, d: int,
+                heads: int, cpu_rerun: bool = False) -> dict:
+    """The vector database (`[index]`): VectorDB with the HNSW defaults
+    (m 32, ef_construction 200, ef_search 100) loaded with the main path's
+    corpus by the serial insert_batch, each row's payload {cluster, bucket};
+    IX_QUERIES searches (corpus rows plus IX_NOISE N(0, 1)) at k=10 against
+    the flat index's exact top-10 on the card; a cluster filter (the
+    candidate route, against exact scoring of the cluster) and a bucket
+    range filter (the over-fetch route); the index's level-0 graph and
+    features on the card through `[serve]`'s K3 stack (K3 at M = the
+    index's widest list) and the hierarchical forward over its levels;
+    BASELINE.md row 1's operating point; the hyperbolic index's pruned
+    search against its exact one, and with cpu_rerun (the phase run alone)
+    both against the CPU; a save/load round trip. Returns K3's launches
+    and its time at M."""
+    t_phase = time.perf_counter()
+    n = feats_np.shape[0]
+    db = VectorDB(DbOptions(dimensions=d), device=DEV)
+    payloads = [{"cluster": int(c), "bucket": i % 10} for i, c in enumerate(labels)]
+    _, build_ms = _synced_ms(lambda: db.insert_batch(feats_np, payloads=payloads))
+    rng = np.random.default_rng(11)
+    rows = rng.choice(n, IX_QUERIES, replace=False)
+    queries = (feats_np[rows] + IX_NOISE * rng.standard_normal((IX_QUERIES, d))).astype(np.float32)
+    ids, lat = np.full((IX_QUERIES, IX_K), -1, np.int64), []
+    for i, q in enumerate(queries):
+        t0 = time.perf_counter()
+        res = db.search(q, k=IX_K)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        ids[i, :len(res)] = [r.id for r in res]
+    flat = FlatIndex(dim=d, metric="cosine", device=DEV)
+    flat.add_batch(feats_np)
+    exact, _ = flat.search_batch(queries, k=IX_K)
+    recall = _recall(ids, exact, IX_K)
+    say("index", rows=n, d=d, m=32, ef_construction=200, ef_search=100, build_s=build_ms / 1e3,
+        inserts_per_s=n / (build_ms / 1e3), queries=IX_QUERIES, k=IX_K,
+        p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
+        qps=IX_QUERIES / (sum(lat) * 1e-3), recall_at_10=recall, recall_min=0.95)
+    if recall < 0.95:
+        raise AssertionError(f"VectorDB recall@10 {recall} under 0.95")
+
+    # filters: a cluster (candidate route) and a bucket range (over-fetch)
+    c0 = int(labels[rows[0]])
+    members = np.nonzero(labels == c0)[0]
+    cl_filter = {"must": [{"key": "cluster", "match": {"value": c0}}]}
+    bk_filter = {"must": [{"key": "bucket", "range": {"gte": 2, "lt": 6}}]}
+    bound = max(4 * IX_K, n // 4)
+    routes = {name: "candidates" if len(candidate_ids(db._payload_index,
+                                                      parse_qdrant_filter(f))) <= bound
+              else "over-fetch" for name, f in (("cluster", cl_filter), ("bucket", bk_filter))}
+    if routes != {"cluster": "candidates", "bucket": "over-fetch"}:
+        raise AssertionError(f"filters took the routes {routes}")
+    unit = torch.nn.functional.normalize(torch.from_numpy(feats_np[members]).to(DEV), dim=1)
+    filt_ms = []
+    for q in queries[:IX_FILTER_QUERIES]:
+        t0 = time.perf_counter()
+        res = db.search(q, k=IX_K, filter=cl_filter)
+        filt_ms.append((time.perf_counter() - t0) * 1e3)
+        sims = unit @ torch.nn.functional.normalize(torch.from_numpy(q).to(DEV), dim=0)
+        top = torch.topk(sims, min(IX_K, len(members)))
+        same_topk(f"cluster filter vs exact scoring of cluster {c0}",
+                  [members[top.indices.cpu().numpy()]], [top.values.cpu().numpy()],
+                  [[r.id for r in res]], [[r.score for r in res]], 1e-5)
+        res = db.search(q, k=IX_K, filter=bk_filter)
+        if len(res) != IX_K or not all(2 <= r.payload["bucket"] < 6 for r in res):
+            raise AssertionError("bucket filter: a result outside its filter")
+    say("index_filters", cluster=c0, cluster_rows=len(members), routes=json.dumps(routes),
+        cluster_filter_ms=statistics.median(filt_ms), queries=IX_FILTER_QUERIES)
+
+    # index -> GNN: the level-0 graph on the card through the K3 stack
+    g, fm = db.neighbor_graph(), db.features_matrix()
+    m_idx = g.max_degree
+    cfg, stack = _k3_stack(d, heads)
+    out, counts = counted(["fused_neighbor_mix"], lambda: _apply_stack(stack, cfg, fm, g))
+    agree("index graph: K3 stack vs slot route", out,
+          _apply_stack(stack, dataclasses.replace(cfg, use_pallas=False), fm, g), torch.float32)
+    k3, k3_ref, (k3_bound, k3_by), k3_as_passed = _k3_at(stack[0], fm, g, heads)
+    err = agree(f"K3 at the index's M={m_idx}", k3(), k3_ref(), torch.float32)
+    edges = int((g.nbr_mask > 0).sum())
+    layer_ms = time_ms(lambda: ruvector_layer_apply(stack[0], cfg, fm, g), iters=10)
+    k3_info = {"index_M": m_idx, "index_body": k3_body(heads, m_idx, d),
+               "index_ms": time_ms(k3, iters=10), "index_kernel_ms": kernel_ms(k3),
+               "index_plain_ms": time_ms(k3_ref, iters=10), "index_bound_ms": k3_bound,
+               "index_bound_by": k3_by, "index_bound_ms_as_passed": k3_as_passed,
+               "index_max_abs_err": err}
+    del k3, k3_ref
+    say("index_gnn", nodes=n, M=m_idx, edges=edges, body=k3_info["index_body"],
+        layer_ms=layer_ms, edges_per_s=edges / (layer_ms * 1e-3),
+        k3_ms=k3_info["index_ms"], k3_kernel_ms=k3_info["index_kernel_ms"],
+        k3_plain_ms=k3_info["index_plain_ms"], k3_bound_ms=k3_bound, k3_bound_by=k3_by,
+        k3_bound_ms_as_passed=k3_as_passed, k3_launches=counts["fused_neighbor_mix"])
+
+    levels = [torch.from_numpy(lv.astype(np.int64)).to(DEV) for lv in db.index.level_nodes()
+              if len(lv)]
+    h_cfgs = [RuvectorLayerConfig(d, d, heads=heads) for _ in levels]
+    h_params = [ruvector_layer_init(i, c, device=DEV) for i, c in enumerate(h_cfgs)]
+    embs = [fm[lv] for lv in levels]
+    h_ms = []
+    for q in queries[:IX_HIER_QUERIES]:
+        qt = torch.from_numpy(q).to(DEV)
+        h, ms = _synced_ms(lambda: hierarchical_forward(qt, embs, h_params, h_cfgs))
+        h_ms.append(ms)
+        agree_cpu("hierarchical forward over the HNSW levels", h, hierarchical_forward(
+            qt.cpu(), [e.cpu() for e in embs], _tree_cpu(h_params), h_cfgs))
+    say("index_hierarchical", levels=[len(lv) for lv in levels], queries=IX_HIER_QUERIES,
+        ms=statistics.median(h_ms))
+
+    # BASELINE.md row 1: 10k x 384, m 32, efc 200, ef 100
+    brng = np.random.default_rng(0)
+    centers = brng.normal(size=(IX_BASE_CENTERS, IX_BASE_D)).astype(np.float32) * 3.0
+    base = (centers[brng.integers(0, IX_BASE_CENTERS, IX_BASE_N)]
+            + brng.normal(size=(IX_BASE_N, IX_BASE_D))).astype(np.float32)
+    bq = (centers[brng.integers(0, IX_BASE_CENTERS, IX_BASE_Q)]
+          + brng.normal(size=(IX_BASE_Q, IX_BASE_D))).astype(np.float32)
+    hcfg = HnswConfig(dim=IX_BASE_D, m=32, ef_construction=200, ef_search=100)
+    hidx = HnswIndex(hcfg, device=DEV)
+    _, base_build_ms = _synced_ms(lambda: hidx.add_batch(base))
+    (b_ids, b_d), search_ms = _synced_ms(lambda: hidx.search_batch(bq, k=100, ef=100))
+    bflat = FlatIndex(dim=IX_BASE_D, metric="cosine", device=DEV)
+    bflat.add_batch(base)
+    truth, _ = bflat.search_batch(bq, k=100)
+    with tempfile.TemporaryDirectory() as tmp:
+        hidx.save(tmp, base)
+        loaded, _ = HnswIndex.load(tmp, device=DEV)
+        l_ids, l_d = loaded.search_batch(bq, k=100, ef=100)
+    if not (np.array_equal(l_ids, b_ids) and np.array_equal(l_d, b_d)):
+        raise AssertionError("HNSW save/load: the reloaded index answers otherwise")
+    say("index_baseline_row1", rows=IX_BASE_N, d=IX_BASE_D, queries=IX_BASE_Q,
+        build_s=base_build_ms / 1e3, recall_at_1=_recall(b_ids, truth, 1),
+        recall_at_10=_recall(b_ids, truth, 10), recall_at_100=_recall(b_ids, truth, 100),
+        single_thread_qps=IX_BASE_Q / (search_ms / 1e3), save_load_ids_equal=True)
+
+    # the hyperbolic index: the features scaled into the ball
+    pts = feats_np * (IX_HYPER_RADIUS / float(np.linalg.norm(feats_np, axis=1).max()))
+    hq = pts[rows[:IX_HYPER_QUERIES]] + 0.01 * IX_HYPER_RADIUS * rng.standard_normal(
+        (IX_HYPER_QUERIES, d)).astype(np.float32)
+    # the CPU's rerun (host parity the CPU tests also hold) only when the
+    # phase runs alone
+    runs = []
+    for dev, qs in ((DEV, hq), (torch.device("cpu"), hq[:IX_HYPER_CPU]))[:1 + cpu_rerun]:
+        hyp = HyperbolicIndex(HyperbolicConfig(dim=d), device=dev)
+        hyp.insert_batch(pts)
+        runs.append(_synced_ms(lambda: ([hyp.search(q, k=IX_K) for q in qs],
+                                     [hyp.search_exact(q, k=IX_K) for q in qs])))
+    (pruned, exact_h), hyp_ms = runs[0]
+    for (pruned_c, exact_c), _ in runs[1:]:
+        for name, a, b in (("pruned", pruned_c, pruned[:IX_HYPER_CPU]),
+                           ("exact", exact_c, exact_h[:IX_HYPER_CPU])):
+            same_topk(f"hyperbolic {name} search: CPU vs card", [[i for i, _ in r] for r in a],
+                      [[x for _, x in r] for r in a], [[i for i, _ in r] for r in b],
+                      [[x for _, x in r] for r in b], 1e-4)
+    say("index_hyperbolic", rows=n, queries=IX_HYPER_QUERIES, k=IX_K,
+        recall_vs_exact=_recall(np.asarray([[i for i, _ in r] for r in pruned]),
+                                np.asarray([[i for i, _ in r] for r in exact_h]), IX_K),
+        ms_per_query_pair=hyp_ms / IX_HYPER_QUERIES,
+        cpu_queries_equal=sum(len(r[0][0]) for r in runs[1:]))
+    say("index_done", seconds=round(time.perf_counter() - t_phase, 1),
+        kernel_launches=counts["fused_neighbor_mix"])
+    return {"launches": counts["fused_neighbor_mix"], "k3": k3_info}
+
+
+_GS_QUERIES = {
+    "one_hop_count": "MATCH (a:Point {{idx: {i}}})-[:KNN]->(b) RETURN count(*) AS n",
+    "in_count": "MATCH (a:Point {{idx: {i}}})<-[:KNN]-(b) RETURN count(*) AS n",
+    "two_hop_same_cluster": "MATCH (a:Point {{idx: {i}}})-[:KNN]->(b)-[:KNN]->(c) "
+                            "WHERE c.cluster = a.cluster RETURN count(*) AS n",
+    "order_by_limit": "MATCH (a:Point {{idx: {i}}})-[:KNN]->(b) RETURN b.idx AS id, "
+                      "b.cluster AS c ORDER BY id DESC LIMIT 5",
+    "cluster_count": "MATCH (a:Point {{cluster: {c}}}) RETURN count(*) AS n",
+}
+
+
+def _numpy_answers(i: int, nbr, mask, labels) -> dict:
+    """The same questions answered from the graph's arrays."""
+    real = mask > 0
+    out_i = nbr[i][real[i]]
+    return {
+        "one_hop_count": [{"n": int(real[i].sum())}],
+        "in_count": [{"n": int(((nbr == i) & real).sum())}],
+        "two_hop_same_cluster": [{"n": int(sum((labels[nbr[b][real[b]]] == labels[i]).sum()
+                                               for b in out_i))}],
+        "order_by_limit": [{"id": int(j), "c": int(labels[j])} for j in np.sort(out_i)[::-1][:5]],
+        "cluster_count": [{"n": int((labels == labels[i]).sum())}],
+    }
+
+
+def phase_graph_store(feats_np: np.ndarray, feats: torch.Tensor, labels: np.ndarray,
+                      graph: NeighborGraph, d: int, heads: int) -> int:
+    """The property graph (`[graph_store]`): the 100k-node kNN graph as a
+    PropertyGraph (zero-padded ids in index order; label Point, properties
+    idx, cluster and the embedding row; each kNN edge KNN with its
+    weight); Cypher queries against the same questions answered from the
+    arrays; Cypher writes, then a transaction rolled back; its CSR on the
+    card through the CSR SpMM against the padded SpMM of the kNN graph;
+    its padded lowering and feature matrix through `[serve]`'s K3 stack,
+    equal to the stack on the kNN graph. Returns K3's launches."""
+    t_phase = time.perf_counter()
+    n = feats_np.shape[0]
+    nbr, mask = graph.nbr_idx.cpu().numpy(), graph.nbr_mask.cpu().numpy()
+    w = graph.edge_weight.cpu().numpy()
+    names = [f"{i:06d}" for i in range(n)]
+
+    def build():
+        g = PropertyGraph()
+        for i in range(n):
+            g.add_node(names[i], ("Point",), idx=i, cluster=int(labels[i]), embedding=feats_np[i])
+        for i in range(n):
+            for j in np.nonzero(mask[i] > 0)[0]:
+                g.add_edge(names[i], names[nbr[i, j]], "KNN", weight=float(w[i, j]))
+        return g
+
+    g, build_ms = _synced_ms(build)
+    if g.node_ids() != names or g.edge_count != int((mask > 0).sum()):
+        raise AssertionError("property graph: ids out of index order or edges missing")
+    q_ms = {}
+    for i in (0, n // 8 + 5, n - 1):
+        want = _numpy_answers(i, nbr, mask, labels)
+        for name, text in _GS_QUERIES.items():
+            rows, ms = _synced_ms(lambda: execute_cypher(g, text.format(i=i, c=int(labels[i]))))
+            q_ms.setdefault(name, []).append(ms)
+            if rows != want[name]:
+                raise AssertionError(f"cypher {name} at node {i}: {rows} != {want[name]}")
+    say("graph_store", nodes=n, edges=g.edge_count, build_s=build_ms / 1e3, answers_equal=True,
+        query_ms=json.dumps({k: round(statistics.median(v), 3) for k, v in q_ms.items()},
+                            separators=(",", ":")))
+
+    # writes: Cypher CREATE / SET / DELETE, then a transaction rolled back
+    n0, e0 = g.node_count, g.edge_count
+    execute_cypher(g, "CREATE (x:Point {idx: -1, cluster: -1})")
+    execute_cypher(g, "MATCH (x:Point {idx: -1}), (b:Point {idx: 0}) "
+                      "CREATE (x)-[:KNN {since: 2024}]->(b)")
+    execute_cypher(g, "MATCH (x:Point {idx: -1}) SET x.cluster = 7")
+    rows = execute_cypher(g, "MATCH (x:Point {idx: -1})-[r:KNN]->(b) "
+                             "RETURN x.cluster AS c, b.idx AS b, r.since AS s")
+    if rows != [{"c": 7, "b": 0, "s": 2024}]:
+        raise AssertionError(f"cypher writes read back {rows}")
+    _, delete_ms = _synced_ms(lambda: execute_cypher(g, "MATCH (x:Point {idx: -1}) DELETE x"))
+    tx = g.begin()
+    tx.add_node("new", ("Point",), idx=-2, cluster=-2)
+    tx.add_edge("new", names[0], "KNN", weight=0.25)
+    tx.set_property(names[1], "cluster", -5)
+    tx.delete_node(names[2])
+    seen = tx.read_node("new") is not None and tx.read_node(names[2]) is None
+    tx.rollback()
+    restored = (g.node_count, g.edge_count) == (n0, e0) and \
+        g.get_node(names[1]).properties["cluster"] == int(labels[1]) and \
+        execute_cypher(g, _GS_QUERIES["one_hop_count"].format(i=2)) == \
+        _numpy_answers(2, nbr, mask, labels)["one_hop_count"]
+    if not (seen and restored):
+        raise AssertionError("transaction: read-your-writes or the rollback failed")
+    say("graph_store_writes", cypher_create_set_delete=True, delete_ms=delete_ms,
+        transaction_rolled_back=True)
+
+    # lowerings on the card: CSR through the CSR SpMM, padded through K3
+    (csr, ids), csr_ms = _synced_ms(lambda: g.to_csr(device=DEV))
+    agree("property graph CSR SpMM vs the kNN graph's padded SpMM", spmm_csr(csr, feats),
+          spmm_padded(feats, graph.nbr_idx, graph.edge_weight, graph.nbr_mask), torch.float32)
+    ((ng, _), fm), lower_ms = _synced_ms(lambda: (g.to_neighbor_graph(max_degree=graph.max_degree,
+                                                                  device=DEV),
+                                              torch.from_numpy(g.feature_matrix()).to(DEV)))
+    for a, b in ((ng.nbr_idx, graph.nbr_idx), (ng.nbr_mask, graph.nbr_mask),
+                 (ng.edge_weight, graph.edge_weight), (fm, feats)):
+        if not torch.equal(a, b):
+            raise AssertionError("property graph lowering differs from the kNN graph")
+    cfg, stack = _k3_stack(d, heads)
+    out, counts = counted(["fused_neighbor_mix"], lambda: _apply_stack(stack, cfg, fm, ng))
+    equal_cpu("K3 stack on the property graph's lowering vs on the kNN graph", out,
+              _apply_stack(stack, cfg, feats, graph))
+    say("graph_store_lowering", csr_ms=csr_ms, padded_ms=lower_ms, ids_in_order=ids == names,
+        k3_launches=counts["fused_neighbor_mix"])
+    say("graph_store_done", seconds=round(time.perf_counter() - t_phase, 1),
+        kernel_launches=counts["fused_neighbor_mix"])
+    return counts["fused_neighbor_mix"]
+
+
+def _clustered_global(mc, rng, n_cl: int, cluster: int) -> dict:
+    """benchmarks/global_mincut_scale_r04.py's clustered growth: a path and
+    chords in each cluster, one light bridge between consecutive clusters
+    and one closing the ring."""
+    live = {}
+
+    def ins(u, v, w):
+        mc.insert_edge(u, v, w)
+        live[(min(u, v), max(u, v))] = w
+
+    for c in range(n_cl):
+        base = c * cluster
+        for i in range(1, cluster):
+            ins(base + i - 1, base + i, float(rng.uniform(0.8, 1.2)))
+        for _ in range(int(cluster * 0.3)):
+            a, b = rng.integers(0, cluster, 2)
+            if a != b:
+                ins(base + int(a), base + int(b), float(rng.uniform(0.5, 1.0)))
+    for c in range(1, n_cl):
+        ins((c - 1) * cluster + int(rng.integers(cluster)), c * cluster + int(rng.integers(cluster)),
+            float(rng.uniform(0.05, 0.3)))
+    ins(int(rng.integers(cluster)), (n_cl - 1) * cluster + int(rng.integers(cluster)),
+        float(rng.uniform(0.05, 0.3)))
+    return live
+
+
+def _reweight_stream(mcs, live: dict, rng, steps: int) -> list:
+    """The drift stream: a random live edge reweighted by U(0.9, 1.1), a
+    query after each; every maintainer in mcs gets the same updates.
+    Returns each step's cut values."""
+    keys = list(live)
+    values = []
+    for _ in range(steps):
+        key = keys[int(rng.integers(len(keys)))]
+        w = live[key] * float(rng.uniform(0.9, 1.1))
+        live[key] = w
+        for mc in mcs:
+            mc.reweight_edge(key[0], key[1], w)
+        values.append([mc.cut_value() for mc in mcs])
+    return values
+
+
+def _two_communities(n: int, rng) -> np.ndarray:
+    """benchmarks/mincut_scale.py's s-t graph: two communities of n/2
+    (intra-degree ~8) joined by 6 light bridges."""
+    half, edges = n // 2, []
+    for lo, hi in ((0, half), (half, n)):
+        src = rng.integers(lo, hi, size=(hi - lo) * 4)
+        dst = rng.integers(lo, hi, size=src.size)
+        keep = src != dst
+        wt = rng.uniform(0.5, 1.5, size=src.size).astype(np.float32)
+        edges.append(np.stack([src[keep], dst[keep], wt[keep].astype(np.float64)], 1))
+    edges.append(np.stack([rng.integers(0, half, 6), rng.integers(half, n, 6),
+                           rng.uniform(0.01, 0.05, 6)], 1))
+    return np.concatenate(edges)
+
+
+def _st_updates(n: int, rng, steps: int) -> list:
+    """benchmarks/mincut_scale.py's mixed stream, drawn as it draws it:
+    80% inserts inside a community, 10% bridge reweights, 10% deletes
+    inside a community; None where an insert drew a self-loop (the query
+    still follows)."""
+    half, ops = n // 2, []
+    for _ in range(steps):
+        op = rng.random()
+        if op < 0.8:
+            lo = 0 if rng.random() < 0.5 else half
+            u, v = int(rng.integers(lo, lo + half)), int(rng.integers(lo, lo + half))
+            ops.append(("insert_edge", u, v, float(rng.uniform(0.5, 1.5))) if u != v else None)
+        elif op < 0.9:
+            ops.append(("reweight_edge", int(rng.integers(0, half)), int(rng.integers(half, n)),
+                        float(rng.uniform(0.01, 0.05))))
+        else:
+            lo = 0 if rng.random() < 0.5 else half
+            ops.append(("delete_edge", int(rng.integers(lo, lo + half)),
+                        int(rng.integers(lo, lo + half))))
+    return ops
+
+
+def _apply_updates(mc, ops: list) -> list:
+    """Each update, then a query; the cut values."""
+    values = []
+    for op in ops:
+        if op is not None:
+            getattr(mc, op[0])(*op[1:])
+        values.append(mc.cut_value())
+    return values
+
+
+def _cluster_neighbourhood(graph: NeighborGraph, labels: np.ndarray, c: int):
+    """One cluster's members and their kNN neighbours, as a symmetrised
+    edge list over local ids: (src, dst, w, n)."""
+    nbr, mask = graph.nbr_idx.cpu().numpy(), graph.nbr_mask.cpu().numpy() > 0
+    w = graph.edge_weight.cpu().numpy()
+    members = np.nonzero(labels == c)[0]
+    nodes = np.unique(np.concatenate([members, nbr[members][mask[members]]]))
+    local = {int(v): i for i, v in enumerate(nodes)}
+    pairs = {}
+    for u in nodes:
+        for j in np.nonzero(mask[u])[0]:
+            v = int(nbr[u, j])
+            if v in local and v != u:
+                key = (min(local[int(u)], local[v]), max(local[int(u)], local[v]))
+                pairs[key] = max(pairs.get(key, 0.0), float(w[u, j]))
+    src = np.asarray([a for a, _ in pairs], np.int64)
+    dst = np.asarray([b for _, b in pairs], np.int64)
+    return src, dst, np.asarray(list(pairs.values()), np.float32), len(nodes)
+
+
+def phase_mincut(graph: NeighborGraph, labels: np.ndarray) -> None:
+    """The min-cut toolkit (`[mincut]`). Host workloads: the maintainers
+    are host C++ (native) or numpy (Python); the card runs only the CSR
+    parts (PPR push) and the CG solves. The global maintainer at
+    GLOBAL_MINCUT_SCALE_r05.json's 500k cell (growth, then
+    MC_GLOBAL_UPDATES drift updates, a query after each); the s-t
+    maintainer at MINCUT_SCALE_r02.json's 100k row (its 2,000 mixed
+    updates, a query after each, on native.IncrementalMinCut as the
+    benchmark drives it; the DynamicMinCut facade on the first
+    MC_ST_FACADE, equal); the Python maintainer against the native one on
+    the 20k cell's first MC_PY_UPDATES updates (1e-4 at every query); then
+    on the bench graph's symmetrised CSR on the card, its clusters joined
+    in a ring by light bridges: local_cluster and local_k_cut from one
+    node (a cut of positive conductance), and on one cluster's
+    neighbourhood expander_decompose, JTree and spectral_sparsify, each
+    against the same call on the CPU."""
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+
+    # global, native: the 500k cell
+    rng = np.random.default_rng(MC_GLOBAL_SEED)
+    mc = DynamicMinCut(MC_GLOBAL_CL * MC_GLOBAL_SIZE, source=None)
+    live, grow_ms = _synced_ms(lambda: _clustered_global(mc, rng, MC_GLOBAL_CL, MC_GLOBAL_SIZE))
+    cut0, first_ms = _synced_ms(mc.cut_value)
+    vals, stream_ms = _synced_ms(lambda: _reweight_stream([mc], live, rng, MC_GLOBAL_UPDATES))
+    say("mincut_global", nodes=MC_GLOBAL_CL * MC_GLOBAL_SIZE, edges=len(live), grow_s=grow_ms / 1e3,
+        first_query_ms=first_ms, cut_after_growth=cut0, updates=MC_GLOBAL_UPDATES,
+        updates_per_s=MC_GLOBAL_UPDATES / (stream_ms / 1e3), final_cut=vals[-1][0],
+        solver=type(mc._g).__name__, stats=json.dumps(mc.solver_stats(), separators=(",", ":")))
+    del mc, live
+
+    # s-t, native: the 100k row, driven as benchmarks/mincut_scale.py
+    # drives it (native.IncrementalMinCut, a query after each update)
+    n = MC_ST_NODES
+    edges = _two_communities(n, np.random.default_rng(0))
+    ops = _st_updates(n, np.random.default_rng(1), MC_ST_UPDATES)
+
+    def load(mc):
+        for u, v, w in edges:
+            mc.insert_edge(int(u), int(v), float(w))
+        return mc.cut_value()
+
+    st = native.IncrementalMinCut(n, 0, n - 1)
+    cut0, load_ms = _synced_ms(lambda: load(st))
+    values, st_ms = _synced_ms(lambda: _apply_updates(st, ops))
+    # the DynamicMinCut facade on the first MC_ST_FACADE updates: the same
+    # values, and a query that also lists the cut's edges
+    facade = DynamicMinCut(n, 0, n - 1)
+    load(facade)
+    f_values, facade_ms = _synced_ms(lambda: _apply_updates(facade, ops[:MC_ST_FACADE]))
+    if f_values != values[:MC_ST_FACADE]:
+        raise AssertionError("s-t min cut: the DynamicMinCut facade and the native class differ")
+    say("mincut_st", nodes=n, edges=len(edges), load_and_first_query_s=load_ms / 1e3,
+        first_cut=cut0, updates=MC_ST_UPDATES, us_per_update_query=st_ms / MC_ST_UPDATES * 1e3,
+        updates_per_s=MC_ST_UPDATES / (st_ms / 1e3), final_cut=values[-1],
+        stats=json.dumps(st.stats(), separators=(",", ":")), facade_updates=MC_ST_FACADE,
+        facade_us_per_update_query=facade_ms / MC_ST_FACADE * 1e3, facade_values_equal=True)
+    st.close()
+    del st, facade, edges
+
+    # the Python maintainer against the native one: the 20k cell
+    mcs = [DynamicMinCut(MC_PY_CL * MC_PY_SIZE, source=None, backend=b)
+           for b in ("native", "python")]
+    rng = np.random.default_rng(0)
+    both = types.SimpleNamespace(insert_edge=lambda u, v, w: [mc.insert_edge(u, v, w)
+                                                              for mc in mcs])
+    live = _clustered_global(both, rng, MC_PY_CL, MC_PY_SIZE)
+    first, py_ms = _synced_ms(lambda: [mc.cut_value() for mc in mcs])
+    vals, py_stream_ms = _synced_ms(lambda: _reweight_stream(mcs, live, rng, MC_PY_UPDATES))
+    worst = max(abs(a - b) / max(abs(a), 1e-12) for a, b in [first] + vals)
+    if worst > 1e-4 or type(mcs[1]._g).__name__ != "GlobalDynamicMinCut":
+        raise AssertionError(f"global min cut: Python vs native differ by {worst} relative")
+    say("mincut_python_route", nodes=MC_PY_CL * MC_PY_SIZE, edges=len(live),
+        updates=MC_PY_UPDATES, queries_equal=len(vals) + 1, max_rel_diff=worst,
+        first_query_ms_both=py_ms, stream_ms_both=py_stream_ms)
+    del mcs
+
+    # the bench graph's CSR on the card, each cluster's first node joined
+    # to the next cluster's by a light bridge (the kNN clusters are
+    # components of their own): local cuts from one node
+    nbr, mask = graph.nbr_idx.cpu().numpy(), graph.nbr_mask.cpu().numpy() > 0
+    w = graph.edge_weight.cpu().numpy()
+    rows = np.repeat(np.arange(graph.num_nodes), mask.sum(1))
+    firsts = np.unique(labels, return_index=True)[1]
+    src, dst = np.r_[rows, firsts], np.r_[nbr[mask], np.roll(firsts, -1)]
+    wt = np.r_[w[mask], np.full(len(firsts), w[mask].min(), np.float32)]
+    sym = (np.r_[src, dst], np.r_[dst, src], np.r_[wt, wt], graph.num_nodes)
+    g_card, g_cpu = (CSRGraph.from_edges(*sym, device=dev) for dev in (DEV, "cpu"))
+    ms = {}
+    (members, phi), ms["local_cluster"] = _synced_ms(lambda: local_cluster(g_card, MC_LOCAL_SEED))
+    members_c, phi_c = local_cluster(g_cpu, MC_LOCAL_SEED)
+    if not phi_c > 0:
+        raise AssertionError("local_cluster: a cut of no edges, so the sweep's cut is untested")
+    if set(members.tolist()) != set(members_c.tolist()) or abs(phi - phi_c) > 1e-4 * phi_c:
+        raise AssertionError("local_cluster: card vs CPU")
+    cut, ms["local_k_cut"] = _synced_ms(lambda: local_k_cut(g_card, MC_LOCAL_SEED, k=1e9))
+    cut_c = local_k_cut(g_cpu, MC_LOCAL_SEED, k=1e9)
+    if cut.cut_edges != cut_c.cut_edges or abs(cut.value - cut_c.value) > 1e-4 * cut_c.value:
+        raise AssertionError("local_k_cut: card vs CPU")
+
+    # one cluster's neighbourhood: expander, j-tree, sparsifier
+    c0 = int(labels[MC_LOCAL_SEED])
+    s_src, s_dst, s_w, s_n = _cluster_neighbourhood(graph, labels, c0)
+    sub = (np.r_[s_src, s_dst], np.r_[s_dst, s_src], np.r_[s_w, s_w], s_n)
+    sub_card, sub_cpu = (CSRGraph.from_edges(*sub, device=dev) for dev in (DEV, "cpu"))
+    (labels_x, clusters, boundary), ms["expander_decompose"] = _synced_ms(
+        lambda: expander_decompose(sub_card))
+    labels_xc, _, boundary_c = expander_decompose(sub_cpu)
+    if not np.array_equal(labels_x, labels_xc) or boundary != boundary_c:
+        raise AssertionError("expander_decompose: card vs CPU")
+    jt, ms["jtree"] = _synced_ms(lambda: JTree(sub_card))
+    jt_c = JTree(sub_cpu)
+    ub = [jt.query_cut_upper_bound(0, t) for t in range(1, min(s_n, 64))]
+    ub_c = [jt_c.query_cut_upper_bound(0, t) for t in range(1, min(s_n, 64))]
+    if not np.allclose(ub, ub_c, rtol=1e-4, atol=0.0, equal_nan=True):
+        raise AssertionError("JTree: card vs CPU upper bounds")
+    r, ms["effective_resistances"] = _synced_ms(
+        lambda: effective_resistances(s_src, s_dst, s_w, s_n, device=DEV))
+    r_c = effective_resistances(s_src, s_dst, s_w, s_n, device="cpu")
+    r_err = float(np.max(np.abs(r - r_c) / np.abs(r_c)))
+    if r_err > 1e-4:
+        raise AssertionError(f"effective resistances: card vs CPU {r_err} relative")
+    (k_src, k_dst, k_w), ms["spectral_sparsify"] = _synced_ms(
+        lambda: spectral_sparsify(s_src, s_dst, s_w, s_n, eps=MC_SPARSIFY_EPS, device=DEV))
+    crng = np.random.default_rng(1)
+    worst_cut = 0.0
+    for _ in range(16):
+        side = crng.random(s_n) < 0.5
+        c1 = cut_value(s_src, s_dst, s_w, side)
+        worst_cut = max(worst_cut, abs(cut_value(k_src, k_dst, k_w, side) - c1) / max(c1, 1e-9))
+    if worst_cut >= MC_SPARSIFY_EPS:
+        raise AssertionError(f"spectral_sparsify moved a cut by {worst_cut}")
+    after = kernels.launch_counts()
+    say("mincut_toolkit", graph_nodes=graph.num_nodes, csr_entries=int(g_card.num_edges),
+        bridges=len(firsts), cluster=c0, cluster_nodes=s_n, cluster_edges=len(s_src),
+        local_members=len(members),
+        conductance=phi, local_k_cut_value=cut.value, local_k_cut_explored=cut.explored,
+        expander_clusters=len(clusters), expander_boundary=boundary, jtree_levels=len(jt.levels),
+        resistance_max_rel_err=r_err, sparsified_edges=len(k_src), worst_cut_rel=worst_cut,
+        ms=json.dumps({k: round(v, 1) for k, v in ms.items()}, separators=(",", ":")))
+    say("mincut_done", seconds=round(time.perf_counter() - t_phase, 1),
+        kernel_launches=sum(after[k] - before[k] for k in after),
+        note="host workloads: the card runs the CSR push and the CG solves only")
+
+
 def phase_csr_spmm(d: int) -> dict:
     """The port's counterpart of benchmarks/csr_spmm_bench.py:58-159. The
     regular graph (cluster_graph, CSR_NODES, k=16): spmm_padded, K9 on the
@@ -4561,6 +5360,13 @@ def main() -> int:
     phase_quantization(d)
     sp = phase_csr_spmm(d)
     launches["spmm_gather"] = sp["launches"]
+
+    # --- the native runtime, the database, the property graph, min-cut -----
+    phase_native(feats, graph, d)
+    ix = phase_index(feats_np, feats, labels, d, heads)
+    launches["fused_neighbor_mix"] += ix["launches"]
+    launches["fused_neighbor_mix"] += phase_graph_store(feats_np, feats, labels, graph, d, heads)
+    phase_mincut(graph, labels)
     peak_before = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     phase_transformer()
@@ -4614,21 +5420,10 @@ def main() -> int:
                        {"body": k2_body(cfg.cdt), "strip_chunks_with_edges": tile_share(wd)}))
 
         # K3: the use_pallas slot route's inputs (f32 config)
-        msg_s = linear_apply(params["w_msg"], feats)
-        q_s = linear_apply(params["attn"]["q"], msg_s).reshape(-1, heads, hd)
-        u_s = torch.einsum("nhf,dhf->nhd", q_s, wk).contiguous()
-        bias_s = torch.einsum("nhf,hf->nh", q_s, bk).contiguous()
-        nbr_s = msg_s[graph.nbr_idx.long()].contiguous()
-        mask_s = graph.nbr_mask.contiguous()
-        wnorm_s = normalized_weights(graph.edge_weight, graph.nbr_mask).contiguous()
-        k3_args = (u_s, bias_s, nbr_s, mask_s, wnorm_s)
-        k3 = lambda: fused_neighbor_mix(*k3_args, heads=heads, scale=hd ** -0.5)  # noqa: E731
-        k3_ref = lambda: fused_neighbor_mix_reference(  # noqa: E731
-            *k3_args, heads=heads, scale=hd ** -0.5)
-        k3_ops = {torch.float32: 2 * (2 * heads + 1) * d * int((mask_s > 0).sum())}
-        report.append(("fused_neighbor_mix", k3, k3_ref, _agree_as(torch.float32),
-                       bound(nbytes(*k3_args) + (heads + 1) * N_NODES * d * 4, k3_ops),
-                       {"body": k3_body(heads, nbr_s.shape[1], d)}))
+        k3, k3_ref, k3_bound, k3_as_passed = _k3_at(params, feats, graph, heads)
+        report.append(("fused_neighbor_mix", k3, k3_ref, _agree_as(torch.float32), k3_bound,
+                       {"body": k3_body(heads, graph.max_degree, d),
+                        "bound_ms_as_passed": k3_as_passed, **ix["k3"]}))
         report += config5_report(c5, gparams, gcfg)
         report += train_report(c5, c5_halo, gparams, gcfg)
         report += serve_report(rr, sp)
@@ -4671,10 +5466,12 @@ def main() -> int:
 
 
 # the phases that run alone (`python3 chip_smoke.py solver
-# graph_transformer_rest sona training_utils`): plain PyTorch on the
-# 100k-node graph, for iterating on them without the whole script; only
-# `training_utils` builds a kernel (K1's source, for its profiled layer)
-PHASES_ALONE = ("solver", "graph_transformer_rest", "sona", "training_utils")
+# graph_transformer_rest sona training_utils`, `python3 chip_smoke.py
+# native index graph_store mincut`): on the 100k-node graph, for
+# iterating on them without the whole script; `training_utils` builds K1's
+# source (its profiled layer), `index` and `graph_store` K3's
+PHASES_ALONE = ("solver", "graph_transformer_rest", "sona", "training_utils", "native",
+                "index", "graph_store", "mincut")
 
 
 def phases_alone(names: list[str]) -> int:
@@ -4695,6 +5492,16 @@ def phases_alone(names: list[str]) -> int:
         phase_graph_transformer_rest(feats, graph, perm[:GT_ROWS], d, heads)
     if "sona" in names:
         phase_sona(feats, graph, labels)
+    if {"index", "graph_store"} & set(names):
+        say("build_sources", **{k: round(v, 1) for k, v in _lib.build(("neighbor_mix",)).items()})
+    if "native" in names:
+        phase_native(feats, graph, d)
+    if "index" in names:
+        phase_index(feats_np, feats, labels, d, heads, cpu_rerun=True)
+    if "graph_store" in names:
+        phase_graph_store(feats_np, feats, labels, graph, d, heads)
+    if "mincut" in names:
+        phase_mincut(graph, labels)
     if "training_utils" in names:
         say("build_sources", **{k: round(v, 1) for k, v in _lib.build(("block_dense_attn",)).items()})
         cfg = RuvectorLayerConfig(d, d, heads=heads, compute_dtype="bfloat16")

@@ -21,7 +21,7 @@ __version__ = "0.1.0"
 _GRAPH_NAMES = ("NeighborGraph", "CSRGraph", "build_knn_graph")
 _SUBPACKAGES = frozenset({
     "graph", "ops", "nn", "attention", "models", "transformer", "graph_transformer",
-    "training", "sona", "solver", "parallel", "index", "serve", "utils",
+    "training", "sona", "solver", "parallel", "index", "serve", "utils", "mincut", "native",
 })
 
 __all__ = ["NeighborGraph", "CSRGraph", "build_knn_graph", "resolve_device", "__version__"]

@@ -12,9 +12,10 @@ plus temporal hysteresis of the gate mask (hysteresis.rs:1-99).
 Step 2 here is an exact s-t max flow (Dinic) on the host over the logit
 graph, the oracle of the device gate (`mincut_device`), which the
 registry's `mincut` mechanism runs: the canonical minimal source-side
-cut is the same for every max flow, so the two give equal masks. The JAX
-package takes a native C++ Dinic where it is built; this is its Python
-route, which tests/test_native.py pins equal to the native one.
+cut is the same for every max flow, so the two give equal masks. As in
+the JAX package, the native C++ Dinic (native.dinic_mincut_gate) runs
+where the runtime is built, and the Python Dinic below otherwise; the
+tests pin the two equal.
 """
 
 from __future__ import annotations
@@ -80,18 +81,34 @@ class _Dinic:
         return level
 
     def dfs(self, u: int, t: int, f: float, level, it) -> float:
-        if u == t:
-            return f
-        while it[u] < len(self.to[u]):
-            i = it[u]
-            v = self.to[u][i]
-            if self.cap[u][i] > 0 and level[u] < level[v]:
-                d = self.dfs(v, t, min(f, self.cap[u][i]), level, it)
-                if d > 0:
-                    self.cap[u][i] -= d
-                    self.cap[v][self.rev[u][i]] += d
-                    return d
-            it[u] += 1
+        """One blocking-flow augmentation from u: the recursive Dinic DFS
+        (the JAX package's, mincut.rs:27-160) run on an explicit stack, so
+        a path longer than the interpreter's recursion limit augments too.
+        It takes the same edges in the same order and returns the same
+        amount, so the residual capacities are the same floats."""
+        path, caps = [u], [f]
+        while path:
+            w = path[-1]
+            if w == t:
+                d = caps[-1]
+                for x in reversed(path[:-1]):       # innermost edge first
+                    i = it[x]
+                    self.cap[x][i] -= d
+                    self.cap[self.to[x][i]][self.rev[x][i]] += d
+                return d
+            while it[w] < len(self.to[w]):
+                i = it[w]
+                v = self.to[w][i]
+                if self.cap[w][i] > 0 and level[w] < level[v]:
+                    path.append(v)
+                    caps.append(min(caps[-1], self.cap[w][i]))
+                    break
+                it[w] += 1
+            else:                                   # dead end: back up
+                path.pop()
+                caps.pop()
+                if path:
+                    it[path[-1]] += 1
         return 0.0
 
     def max_flow(self, s: int, t: int) -> float:
@@ -117,9 +134,15 @@ def dynamic_min_cut(logits, seq_len: int, lam: float, tau: int, eps: float) -> G
     Edges are the clamped positive logits, s = 0, t = seq_len - 1. The cut
     applies only when its cost is at most lam times the mean positive
     weight; non-positive logits are always gated off. `tau` belongs to the
-    hysteresis and is unused here, as in the reference.
+    hysteresis and is unused here, as in the reference. Takes the native
+    Dinic when the runtime is built.
     """
+    from ruvector_tpu_torch import native
+
     logits = to_numpy(logits).astype(np.float32).reshape(seq_len, seq_len)
+    if native.available:
+        keep, cost = native.dinic_mincut_gate(logits, lam, eps)
+        return GatingResult(keep.reshape(-1), cost, int(keep.sum()), seq_len * seq_len)
     clamped = np.where(logits > eps, logits, 0.0)
     n = seq_len * seq_len
     pos = clamped > 0

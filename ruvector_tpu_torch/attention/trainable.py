@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from ruvector_tpu_torch.attention.base import get_attention
@@ -47,12 +48,18 @@ class TrainableAttention:
         self.opt = adam(learning_rate)
         self.opt_state = self.opt.init(self.params) if self.params is not None else None
 
+    def _tensors(self, *xs) -> list[torch.Tensor]:
+        """Array-likes (numpy, as the JAX package accepts) as float32
+        tensors on the mechanism's device; tensors as they are."""
+        return [x if isinstance(x, torch.Tensor)
+                else torch.as_tensor(np.asarray(x, np.float32), device=self.device) for x in xs]
+
     def _loss(self, params, q, k, v, target) -> torch.Tensor:
-        out = self.mech.apply(params, self.config, q, k, v)
-        return torch.mean((out - target) ** 2)
+        out = self.mech.apply(params, self.config, *self._tensors(q, k, v))
+        return torch.mean((out - self._tensors(target)[0]) ** 2)
 
     def forward(self, q, k, v):
-        return self.mech.apply(self.params, self.config, q, k, v)
+        return self.mech.apply(self.params, self.config, *self._tensors(q, k, v))
 
     def backward(self, q, k, v, target) -> Gradients:
         """The MSE to `target` and its gradient with respect to the

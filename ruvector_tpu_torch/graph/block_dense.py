@@ -1,5 +1,5 @@
 """Block-dense graph layout: neighbor aggregation as dense block products
-(port of ruvector_tpu/graph/block_dense.py:39-90,132-319, host-fill route).
+(port of ruvector_tpu/graph/block_dense.py).
 
 Nodes are blocked contiguously (after a locality ordering such as
 parallel/ordering.graph_grow_blocks). For each block the union of its own
@@ -8,8 +8,16 @@ T = block + halo_max rows, rounded up to `table_pad`. Every neighbor
 relation then lives inside a dense [B, T] tile, so scores and
 aggregation are dense products against the block's local table.
 
-The JAX package's native and device-fill fast paths are not ported yet;
-this is its pure-Python route, which they are pinned bit-identical to.
+Two routes build the same tables, bit for bit, as in the JAX package.
+For uniform blocks where the native runtime is built, the device fill
+plans the local tables on the host (native.bdense_plan) and scatters the
+normalized per-edge weights into the [nB, B, T] table on the device, so
+only ~N*M values cross to it. It falls back to the Python route when a
+node lists a neighbor in several slots, which is also the route for
+`leaf_sizes` blocks. The JAX package's third route, the threaded native
+host fill, stays available as native.bdense_build but builds no layout
+here: it sums a row's weights in another order, so its table differs
+from these in the last bit.
 """
 
 from __future__ import annotations
@@ -90,20 +98,82 @@ def _numpy(a, dtype=None):
     return np.asarray(a) if dtype is None else np.asarray(a).astype(dtype)
 
 
+def _normalized_weights(ew: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Row-normalized edge weights with the uniform fallback
+    (layer.rs:428-432); real edges floored at _EPS_EDGE so that the mask
+    `wdense > 0` keeps them."""
+    w = ew * mask
+    wsum = w.sum(1, keepdims=True)
+    deg = np.maximum(mask.sum(1, keepdims=True), 1.0)
+    wnorm = np.where(wsum > 0, w / np.where(wsum > 0, wsum, 1.0), mask / deg)
+    return np.where(mask > 0, np.maximum(wnorm, _EPS_EDGE), 0.0)
+
+
+def _densify_device(slot: np.ndarray, wnorm: torch.Tensor, nb: int, block: int, t: int,
+                    dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """Scatter per-edge weights into the padded [nb, block, t] table on the
+    device. slot: [n, m] local-table columns, t for a masked edge (dropped).
+    Chunked over block-aligned row ranges so that a chunk's flat index
+    stays below 2**31."""
+    n = slot.shape[0]
+    rows_total = nb * block
+    max_rows = max(((2**31 - 1) // t) // block * block, block)
+    table = torch.zeros((nb, block, t), dtype=dtype, device=dev)
+    for lo in range(0, min(rows_total, n), max_rows):
+        hi = min(n, lo + max_rows)
+        s = torch.from_numpy(slot[lo:hi]).to(dev).long()
+        keep = s < t
+        flat = torch.arange(hi - lo, device=dev)[:, None] * t + s
+        table.view(-1)[lo * t: lo * t + (hi - lo) * t][flat[keep]] = wnorm[lo:hi][keep]
+    return table
+
+
+def _device_fill(nbr, mask, ew, n, block, table_pad, dtype, dev):
+    """The device-fill route: a BlockDenseGraph, or None where a node lists
+    a neighbor in several slots."""
+    from ruvector_tpu_torch import native
+
+    lid, slot, dup = native.bdense_plan(nbr, mask, block=block, table_pad=table_pad)
+    if dup:
+        return None
+    nb, t = lid.shape
+    wnorm = torch.from_numpy(_normalized_weights(ew, mask)).to(dev).to(dtype)
+    degrees = np.zeros((nb, block), np.float32)
+    degrees.reshape(-1)[:n] = mask.sum(1)
+    node_pad = np.zeros((nb, block), np.float32)
+    node_pad.reshape(-1)[:n] = 1.0
+    return BlockDenseGraph(
+        local_ids=torch.from_numpy(lid).to(dev),
+        wdense=_densify_device(slot, wnorm, nb, block, t, dtype, dev),
+        degrees=torch.from_numpy(degrees).to(dev),
+        node_pad=torch.from_numpy(node_pad).to(dev),
+        node_pos=torch.arange(n, dtype=torch.int64, device=dev),
+        n=n)
+
+
 def build_block_dense(nbr_idx, nbr_mask, edge_weight, block: int = 1024,
                       table_pad: int = 128, dtype=torch.float32,
                       leaf_sizes: list[int] | None = None,
+                      device_fill: bool | None = None,
                       device=None) -> BlockDenseGraph:
     """Build from padded-slot adjacency (numpy arrays or tensors), already
     locality-ordered. `leaf_sizes`: consecutive leaf lengths — each leaf
     becomes one block padded to the largest leaf rounded up to 8; without
     it nodes are cut into uniform `block`-sized chunks. `dtype` is the
-    torch dtype of `wdense` (float32 or bfloat16)."""
+    torch dtype of `wdense` (float32 or bfloat16). `device_fill` keeps
+    the JAX package's signature; either value builds by the device fill
+    (see the module's docstring)."""
+    from ruvector_tpu_torch import native
+
     dev = resolve_device(device)
     nbr = _numpy(nbr_idx)
     mask = _numpy(nbr_mask, np.float32)
     ew = _numpy(edge_weight, np.float32)
     n = nbr.shape[0]
+    if leaf_sizes is None and native.available:
+        graph = _device_fill(nbr, mask, ew, n, block, table_pad, dtype, dev)
+        if graph is not None:
+            return graph
 
     if leaf_sizes is None:
         nb = -(-n // block)
@@ -122,13 +192,7 @@ def build_block_dense(nbr_idx, nbr_mask, edge_weight, block: int = 1024,
     for k in range(nb):
         node_pos[starts[k]: starts[k] + lens[k]] = k * bsz + np.arange(lens[k])
 
-    # normalized edge weights with uniform fallback; real edges floored
-    # at _EPS_EDGE so that the mask `wdense > 0` keeps them
-    w = ew * mask
-    wsum = w.sum(1, keepdims=True)
-    deg = np.maximum(mask.sum(1, keepdims=True), 1.0)
-    wnorm = np.where(wsum > 0, w / np.where(wsum > 0, wsum, 1.0), mask / deg)
-    wnorm = np.where(mask > 0, np.maximum(wnorm, _EPS_EDGE), 0.0)
+    wnorm = _normalized_weights(ew, mask)
 
     # per block: halo = sorted unique out-of-block neighbors
     halos = []

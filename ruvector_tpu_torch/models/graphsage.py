@@ -34,12 +34,20 @@ def graphsage_init(seed, cfg: GraphSAGEConfig, device=None) -> dict:
 
 def sample_fanout(graph: NeighborGraph, fanout: int,
                   seed: int = 42) -> tuple[torch.Tensor, torch.Tensor]:
-    """Uniform fixed-fanout sampling on the host: ([N, fanout] int32 ids,
-    [N, fanout] float32 mask) on the graph's device. A node of degree <=
-    fanout keeps all its neighbors; any other draws `fanout` of them
-    without replacement from one `np.random.default_rng(seed)`, node by
-    node in index order (the JAX package's Python route, id for id)."""
+    """Uniform fixed-fanout sampling on the host (graphsage.rs:93-101, seed
+    42): ([N, fanout] int32 ids, [N, fanout] float32 mask) on the graph's
+    device. A node of degree <= fanout keeps all its neighbors. The native
+    runtime draws where it is built (native.sample_fanout, the JAX
+    package's native route id for id); otherwise each node draws `fanout`
+    of them without replacement from one `np.random.default_rng(seed)`,
+    node by node in index order (the JAX package's Python route)."""
+    from ruvector_tpu_torch import native
+
+    dev = graph.nbr_idx.device
     nbr = graph.nbr_idx.cpu().numpy()
+    if native.available:
+        idx, m = native.sample_fanout(nbr, graph.nbr_mask.cpu().numpy(), fanout, seed)
+        return torch.from_numpy(idx).to(dev), torch.from_numpy(m).to(dev)
     mask = graph.nbr_mask.cpu().numpy() > 0
     rng = np.random.default_rng(seed)
     n = nbr.shape[0]
@@ -53,7 +61,6 @@ def sample_fanout(graph: NeighborGraph, fanout: int,
         else:
             out_idx[i] = rng.choice(nbrs, size=fanout, replace=False)
             out_mask[i] = 1.0
-    dev = graph.nbr_idx.device
     return torch.from_numpy(out_idx).to(dev), torch.from_numpy(out_mask).to(dev)
 
 

@@ -270,6 +270,30 @@ def test_mincut_host_and_device_match_jax(seed):
         assert abs(c - want.cut_cost) <= 1e-4 * max(1.0, abs(want.cut_cost))
 
 
+@pytest.mark.parametrize("route", ["native", "python"])
+def test_mincut_gate_routes_match_jax(route, monkeypatch):
+    """dynamic_min_cut by each route against the JAX package's same route
+    (the native Dinic where the runtime builds, else the Python one): masks
+    equal, cut costs within 1e-4 relative."""
+    import ruvector_tpu.native as jnative
+    import ruvector_tpu_torch.native as tnative
+
+    assert tnative.available and jnative.available
+    if route == "python":
+        monkeypatch.setattr(jnative, "available", False)
+        monkeypatch.setattr(tnative, "available", False)
+    for seed in range(4):
+        rng = np.random.default_rng(50 + seed)
+        s = int(rng.integers(4, 40))
+        logits = rng.normal(size=(s, s)).astype(np.float32)
+        lam = float(rng.uniform(0.2, 2.0))
+        got = tmc.dynamic_min_cut(logits, s, lam, 2, 0.01)
+        want = jmc.dynamic_min_cut(logits, s, lam, 2, 0.01)
+        np.testing.assert_array_equal(got.keep_mask, want.keep_mask)
+        assert got.edges_kept == want.edges_kept
+        assert abs(got.cut_cost - want.cut_cost) <= 1e-4 * max(1.0, abs(want.cut_cost))
+
+
 def test_mincut_cut_applied_at_gate_scale_matches_jax():
     """Two weakly coupled communities at S=100: the cut is applied."""
     rng = np.random.default_rng(0)

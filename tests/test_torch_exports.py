@@ -25,9 +25,6 @@ PORT_ROOT = REPO / "ruvector_tpu_torch"
 # JAX modules the port does not have yet, and the ROADMAP item that ports
 # each; a name that a shared `__init__` re-exports from one waits for it
 WAITING = {
-    "graph.property": "item 22", "graph.cypher": "item 22",
-    "index.filter": "item 22", "index.hnsw": "item 22", "index.hyperbolic_hnsw": "item 22",
-    "index.vector_db": "item 22",
     "parallel.ep": "item 23", "parallel.halo": "item 23", "parallel.mesh": "item 23",
     "parallel.partition": "item 23", "parallel.pp": "item 23", "parallel.sp": "item 23",
     "parallel.tp": "item 23",
@@ -87,9 +84,14 @@ def test_shared_modules_cover_this_slice():
                 "utils.mmap_store", "utils.monitoring", "utils.profiler", "training",
                 "training.mining", "training.worker", "training.metrics_hook", "sona",
                 "sona.engine", "sona.export", "sona.federated", "sona.lora", "sona.types",
-                "sona.trajectory", "sona.ewc_pp", "sona.reasoning_bank", "parallel.ordering"):
+                "sona.trajectory", "sona.ewc_pp", "sona.reasoning_bank", "parallel.ordering",
+                "native", "index", "index.filter", "index.hnsw", "index.hyperbolic_hnsw",
+                "index.vector_db", "graph", "graph.property", "graph.cypher", "mincut",
+                "mincut.dynamic", "mincut.global_dynamic", "mincut.local", "mincut.sparsify",
+                "mincut.expander", "mincut.jtree"):
         assert rel in SHARED, rel
     assert not set(WAITING) & set(SHARED), "a ported module is still listed as waiting"
+    assert set(WAITING.values()) == {"item 23", "item 24"}
 
 
 @pytest.mark.parametrize("rel", SHARED, ids=lambda r: r or "<top>")
@@ -115,7 +117,9 @@ loaded = sorted(m for m in sys.modules if m.startswith("ruvector_tpu_torch."))
 assert loaded == ["ruvector_tpu_torch.device"], loaded
 assert "graph" not in vars(r) and "sona" not in vars(r)
 names = [r.build_knn_graph, r.NeighborGraph, r.CSRGraph, r.models, r.sona, r.training,
-         r.utils, r.ops.pairwise_cosine, r.ops.cosine_similarity]
+         r.utils, r.ops.pairwise_cosine, r.ops.cosine_similarity, r.mincut.DynamicMinCut,
+         r.native.bdense_plan]
+assert "ruvector_tpu_torch.native" in sys.modules and not r.native._libs
 assert r.NeighborGraph.__module__ == "ruvector_tpu_torch.graph.neighbors"
 print("ok")
 """

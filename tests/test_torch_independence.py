@@ -41,7 +41,17 @@ from ruvector_tpu_torch.graph_transformer import (
     gated_graph_transformer_init,
     graph_transformer_init,
 )
-from ruvector_tpu_torch.index import FlatIndex
+from ruvector_tpu_torch.graph.property import PropertyGraph
+from ruvector_tpu_torch.index import (
+    DbOptions,
+    FlatIndex,
+    HnswConfig,
+    HnswIndex,
+    HyperbolicIndex,
+    VectorDB,
+)
+from ruvector_tpu_torch.index.hyperbolic_hnsw import HyperbolicConfig
+from ruvector_tpu_torch.mincut import spectral_sparsify
 from ruvector_tpu_torch.models import (
     GATConfig,
     GCNConfig,
@@ -149,6 +159,10 @@ for mod in ("utils.metrics", "utils.monitoring", "utils.profiler", "utils.checkp
             "sona.ewc_pp", "sona.reasoning_bank", "sona.engine", "sona.federated",
             "sona.export"):
     assert "ruvector_tpu_torch." + mod in names, mod
+for mod in ("native", "index.filter", "index.hnsw", "index.hyperbolic_hnsw", "index.vector_db",
+            "graph.property", "graph.cypher", "mincut", "mincut.dynamic", "mincut.global_dynamic",
+            "mincut.local", "mincut.sparsify", "mincut.expander", "mincut.jtree"):
+    assert "ruvector_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -163,14 +177,27 @@ def test_imports_no_jax_and_no_jax_package():
     the serving path, the K8/K9 wrappers, the GNN model family, the whole
     attention family, the witness log, the quantization ops, the 19
     modules of the min-cut-gated transformer, the solvers, the rest of
-    the graph transformers, SONA, mining, the worker and the host
-    utilities included."""
+    the graph transformers, SONA, mining, the worker, the host utilities,
+    the native runtime, the indexes, the property graph, Cypher and the
+    min-cut toolkit included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 131
+    assert int(count) >= 145
     assert bad == "[]"
+
+
+def test_port_names_no_path_of_the_jax_package_native_runtime():
+    """The port builds its own copy of the C++ runtime: no code of the port
+    names the JAX package's native directory. (The two .cpp files are
+    byte-for-byte copies, whose header comment names the JAX package's
+    loader; tests/test_torch_native.py holds them equal to the originals.)"""
+    jax_native = "ruvector_tpu" + "/native"
+    hits = [str(p.relative_to(REPO)) for p in (REPO / "ruvector_tpu_torch").rglob("*")
+            if p.is_file() and p.suffix in (".py", ".cu", ".cuh")
+            and jax_native in p.read_text(errors="replace")]
+    assert hits == []
 
 
 # modules whose first import in a fresh process once closed an import
@@ -178,7 +205,8 @@ def test_imports_no_jax_and_no_jax_package():
 # package and the layers that import the kernels)
 _FIRST_IMPORTS = ("nn.ruvector_layer", "nn.block_dense_layer", "training.train",
                   "ops.kernels.mincut_gate_block", "models.ruvector_net", "sona.engine",
-                  "training.mining", "utils.cold_tier")
+                  "training.mining", "utils.cold_tier", "native", "index.vector_db",
+                  "graph.cypher", "mincut", "mincut.jtree")
 
 
 @pytest.mark.parametrize("mod", _FIRST_IMPORTS)
@@ -251,6 +279,11 @@ _ENTRY_POINTS = {
     "Profiler.device_memory_stats": lambda: Profiler.device_memory_stats(),
     "HyperbatchIterator": lambda: HyperbatchIterator(_Rows(), HyperbatchConfig(2)),
     "ColdTierTrainer": lambda: ColdTierTrainer(_Rows(), HyperbatchConfig(2)),
+    "HnswIndex": lambda: HnswIndex(HnswConfig(dim=4)),
+    "VectorDB": lambda: VectorDB(DbOptions(dimensions=4)),
+    "HyperbolicIndex": lambda: HyperbolicIndex(HyperbolicConfig(dim=4)),
+    "PropertyGraph.to_csr": lambda: PropertyGraph().to_csr(),
+    "spectral_sparsify": lambda: spectral_sparsify([0, 1], [1, 2], [1.0, 1.0], 3),
 }
 
 

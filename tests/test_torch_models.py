@@ -6,9 +6,10 @@ Inputs are made with numpy from a seed and handed to both packages; the
 port's graph holds the JAX graph's arrays, and JAX-initialised
 parameters cross over with params_from_numpy. f32 outputs agree within
 2e-5; gradients within 2e-5 of each leaf's scale; sampled ids exactly.
-The JAX package samples through its native runtime where that builds;
-these tests switch it to its Python route (`ruvector_tpu.native.available`
-set to False for the test), which the port implements.
+Both packages sample through their native runtimes where those build
+(byte-identical C++, so equal ids); the `python_sampling` tests switch
+both to their Python routes (`native.available` set to False in each
+package for the test), and the ids must be equal there too.
 """
 
 import jax
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import ruvector_tpu.native as jnative
+import ruvector_tpu_torch.native as tnative
 from ruvector_tpu.graph import NeighborGraph as JNG
 from ruvector_tpu.graph import build_knn_graph as jbuild_knn
 from ruvector_tpu.models import gat as jgat
@@ -48,8 +50,9 @@ F32_TOL = 2e-5
 
 @pytest.fixture
 def python_sampling(monkeypatch):
-    """The JAX package's Python sampling route (the port's)."""
+    """Both packages' Python sampling routes."""
     monkeypatch.setattr(jnative, "available", False)
+    monkeypatch.setattr(tnative, "available", False)
 
 
 def _np_tree(params):
@@ -110,6 +113,19 @@ def test_sample_fanout_ids_equal_on_knn_graph(python_sampling):
         jidx, jmask = jsage.sample_fanout(jg, 5, seed=seed)
         np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
         np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+
+
+def test_sample_fanout_native_route_equals_jax():
+    """The default route where the runtime builds: the port's native draws
+    against the JAX package's native draws, ids equal."""
+    assert tnative.available and jnative.available
+    _, jg, tg = setup(n=60, k=8, seed=3)
+    for fanout, seed in ((5, 42), (3, 7)):
+        idx, mask = sample_fanout(tg, fanout, seed=seed)
+        jidx, jmask = jsage.sample_fanout(jg, fanout, seed=seed)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+        assert idx.device.type == "cpu" and idx.dtype == torch.int32
 
 
 # --- GraphSAGE ----------------------------------------------------------------
