@@ -110,6 +110,19 @@ card:
     card, and the expander, j-tree and sparsifier (CG on the card) on one
     cluster's neighbourhood, each against the CPU.
 
+  * the multichip dry run's sharded paths (`[parallel]`,
+    __graft_entry__.py:44-190) as 4 rank processes on the one card (gloo,
+    collectives staged through the host; four ranks on one card measure
+    correctness and the staging cost, not scaling): the halo-sharded
+    2-layer RuvectorNet on the 100k-node graph (forward, overlap forward,
+    an Adam step), a TP layer, an expert-parallel MoE, a 4-stage pipeline
+    and ring attention at the transformer's width, the scatter-gather
+    search over the re-rank's 1M-row corpus, and config 5 sharded over its
+    3906 blocks (loss and gradient, gate state, a drifted step under the
+    global re-solve budget, the masked gradient; K4a, K4b, K5a, K5b, K6c
+    and K7 on every rank), each against the same computation in one
+    process; then the forward at world 1 on NCCL.
+
 Prints one line per phase, the card's name and power limit, a `kernels`
 JSON line (launches on the main paths, error against the plain version,
 times on the card, the least time the card could take), and as the last
@@ -121,6 +134,7 @@ package beside this script.
     python3 chip_smoke.py solver graph_transformer_rest    (those phases alone)
     python3 chip_smoke.py sona training_utils              (those phases alone)
     python3 chip_smoke.py native index graph_store mincut  (those phases alone)
+    python3 chip_smoke.py parallel                         (that phase alone)
 """
 
 from __future__ import annotations
@@ -131,6 +145,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -386,6 +401,36 @@ from ruvector_tpu_torch.ops.segment import (  # noqa: E402
     spmm_padded,
 )
 from ruvector_tpu_torch.ops.spmm_bucketed import build_bucket_plan, spmm_bucketed  # noqa: E402
+from ruvector_tpu_torch.graph.block_dense import BlockDenseGraph  # noqa: E402
+from ruvector_tpu_torch.parallel import (  # noqa: E402
+    EpConfig,
+    GatedShard,
+    TpLayerConfig,
+    build_halo_plan,
+    build_overlap_plan,
+    ep_init,
+    make_blocked_layer_forward,
+    make_blocked_train_step,
+    make_ep_forward,
+    make_overlap_layer_forward,
+    make_pp_forward,
+    make_ring_attention,
+    make_sharded_layer_forward,
+    make_sharded_train_step,
+    make_tp_layer_forward,
+    pad_features_for_plan,
+    reference_attention,
+    reference_ep_forward,
+    reference_pp_forward,
+    reference_tp_layer_forward,
+    run_ranks,
+    sharded_gate_state_init,
+    sharded_step,
+    sharded_value_and_grad,
+    tp_layer_init,
+)
+from ruvector_tpu_torch.parallel.gated import block_ranges, slice_block_dense  # noqa: E402
+from ruvector_tpu_torch.parallel.mesh import rank_devices  # noqa: E402
 from ruvector_tpu_torch.parallel.ordering import graph_grow_blocks  # noqa: E402
 from ruvector_tpu_torch.serve import (  # noqa: E402
     QueryEngine,
@@ -410,6 +455,7 @@ from ruvector_tpu_torch.solver import (  # noqa: E402
 )
 from ruvector_tpu_torch.solver import bmssp as sv_bmssp  # noqa: E402
 from ruvector_tpu_torch.solver import push as sv_push  # noqa: E402
+from ruvector_tpu_torch.serve.distributed import make_distributed_search  # noqa: E402
 from ruvector_tpu_torch.serve.rerank import (  # noqa: E402
     rerank_scores,
     retrieve_candidates,
@@ -729,6 +775,28 @@ MC_PY_CL, MC_PY_SIZE, MC_PY_UPDATES = 400, 50, 50
 MC_LOCAL_SEED, MC_SPARSIFY_EPS = 0, 0.5
 TU_METRIC_STEPS, TU_WORKER_BATCH, TU_PROFILE_ITERS = 3, 8192, 10
 TU_HYPERBATCH, TU_HOT_CAP, TU_HOT_ACCESSES, TU_MMAP_DIRTY = 4096, 1024, 20_000, 4096
+
+
+# the multichip dry run's sharded paths (`[parallel]`, __graft_entry__.py:44-190)
+# as rank processes on the one card: the ranks; part 1's Adam rate and
+# negatives a node (the dry run's); part 2 at `[transformer]`'s width: a TP
+# layer of 16 heads x 64 and FFN 4096 over 512 tokens, 4 experts 1024 ->
+# 4096 over 2048 tokens, 4 pipeline stages of 1024 x 1024 with 8
+# microbatches of 512 rows, ring attention over 8192 positions at d=64;
+# part 3's queries and k; the sources the ranks' kernels come from; the
+# kernels every rank must launch in part 4; the limits: the JAX tests' (2e-4
+# for the halo forward, 2e-5 for TP, EP and PP, 3e-5 for the ring) and
+# 1e-5 of scale for gradients
+PAR_WORLD, PAR_LR, PAR_NEGS = 4, 1e-3, 4
+PAR_TP = dict(hidden=1024, heads=16, head_dim=64, ffn=4096)
+PAR_EP = dict(hidden=1024, ffn=4096, num_experts=4)
+PAR_TP_TOKENS, PAR_EP_TOKENS, PAR_PP_MICRO, PAR_PP_ROWS, PAR_PP_D = 512, 2048, 8, 512, 1024
+PAR_SP_SEQ, PAR_SP_D, PAR_SEARCH_Q, PAR_SEARCH_K = 8192, 64, 1024, 10
+PAR_SOURCES = ("gated_block_layer", "gated_block_attn", "gated_block_mha", "mincut_gate_block")
+PAR_C5_KERNELS = ("gated_block_layer", "gated_block_layer_with_sig", "block_gate_signature_ln_x",
+                  "mincut_gate_block_from_x", "gated_block_attention_fwd",
+                  "gated_block_attention_bwd")
+PAR_HALO_TOL, PAR_TOL, PAR_RING_TOL, PAR_GRAD_TOL = 2e-4, 2e-5, 3e-5, 1e-5
 
 
 def say(phase: str, **fields) -> None:
@@ -1661,11 +1729,16 @@ def _rebuild(params, leaves):
 
 
 def _loss_and_grads(params, cfg, fpad, bdg, keep):
-    """config5_r03's loss (zero targets, the state's masks) and its
-    gradient, for every leaf of params."""
+    """config5_r03's loss (zero targets, the state's masks; with keep None
+    the stateless loss, gates solved in the call) and its gradient, for
+    every leaf of params."""
     leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
-    loss = gated.gated_graph_transformer_loss_with_masks(
-        _rebuild(params, leaves), cfg, fpad, bdg, keep, torch.zeros_like(fpad))
+    zeros = torch.zeros_like(fpad)
+    if keep is None:
+        loss = gated.gated_graph_transformer_loss(_rebuild(params, leaves), cfg, fpad, bdg, zeros)
+    else:
+        loss = gated.gated_graph_transformer_loss_with_masks(_rebuild(params, leaves), cfg, fpad,
+                                                             bdg, keep, zeros)
     return loss.detach(), leaves, torch.autograd.grad(loss, leaves)
 
 
@@ -5250,6 +5323,502 @@ def serve_report(rr: dict, sp: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: the multichip dry run's sharded paths (__graft_entry__.py:44-190)
+# as PAR_WORLD rank processes on the one card
+# ---------------------------------------------------------------------------
+
+def _rank_setup(mesh) -> None:
+    """A rank's first step: TF32 off as in phase_device, and no build
+    (the parent built every kernel and the native runtime)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    missing = [n for n in PAR_SOURCES if not _lib.library_path(n).exists()]
+    if missing and mesh.device.type == "cuda":
+        raise RuntimeError(f"a rank would build {missing}: the parent builds before spawning")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_ms(mesh, fn):
+    """(result, milliseconds) of fn on the rank's device, synchronised on
+    both sides (the collectives' host staging included)."""
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(mesh.device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _par_net(d: int, heads: int, dev):
+    cfg = RuvectorNetConfig(input_dim=d, hidden_dim=d, num_layers=2, heads=heads)
+    return cfg, ruvector_net_init(0, cfg, device=dev)
+
+
+def _par_sizes() -> dict:
+    """Part 2's sizes, handed to the ranks with the inputs' seeds."""
+    return dict(world=PAR_WORLD, tp=PAR_TP, ep=PAR_EP, tp_tokens=PAR_TP_TOKENS,
+                ep_tokens=PAR_EP_TOKENS, pp_micro=PAR_PP_MICRO, pp_rows=PAR_PP_ROWS,
+                pp_d=PAR_PP_D, sp_seq=PAR_SP_SEQ, sp_d=PAR_SP_D)
+
+
+def _par_transformer_inputs(dev, z: dict):
+    """TP, EP, PP and SP inputs at the sizes z, drawn on the host from
+    fixed seeds, so that the parent and every rank hold the same tensors
+    without handing them over."""
+    gen = torch.Generator().manual_seed(11)
+    tp_cfg, ep_cfg = TpLayerConfig(**z["tp"]), EpConfig(**z["ep"])
+    d = z["pp_d"]
+    pp = {"w": torch.randn(z["world"], d, d, generator=gen) / np.sqrt(d),
+          "b": torch.randn(z["world"], d, generator=gen) * 0.1}
+    return dict(
+        tp_cfg=tp_cfg, tp=tp_layer_init(12, tp_cfg, device=dev),
+        tp_x=torch.randn(z["tp_tokens"], tp_cfg.hidden, generator=gen).to(dev),
+        ep_cfg=ep_cfg, ep=ep_init(13, ep_cfg, device=dev),
+        ep_x=torch.randn(z["ep_tokens"], ep_cfg.hidden, generator=gen).to(dev),
+        pp={k: v.to(dev) for k, v in pp.items()},
+        pp_x=torch.randn(z["pp_micro"], z["pp_rows"], d, generator=gen).to(dev),
+        sp=[torch.randn(z["sp_seq"], z["sp_d"], generator=gen).to(dev) for _ in range(3)])
+
+
+def _pp_layer(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def _par_halo_rank(mesh, s: dict) -> dict:
+    """Part 1: the halo-sharded RuvectorNet: forward (timed warm), the
+    overlap forward, one Adam train step."""
+    dev = mesh.device
+    cfg, params = _par_net(s["d"], s["heads"], dev)
+    fpad = torch.from_numpy(s["fpad"]).to(dev)
+    fwd = make_sharded_layer_forward(cfg, s["plan"], mesh)
+    fwd(params, fpad)
+    before = mesh.staged_bytes
+    y, fwd_ms = _rank_ms(mesh, lambda: fwd(params, fpad))
+    fwd_staged = mesh.staged_bytes - before
+    ov = make_overlap_layer_forward(cfg, s["ov_plan"], mesh)
+    ov_fpad = torch.from_numpy(s["ov_fpad"]).to(dev)
+    ov(params, ov_fpad)
+    y_ov, ov_ms = _rank_ms(mesh, lambda: ov(params, ov_fpad))
+    opt = adam(s["lr"])
+    step = make_sharded_train_step(cfg, s["plan"], mesh, opt)
+    neg_ids = torch.from_numpy(s["neg_ids"]).to(dev)
+    first_ms = _rank_ms(mesh, lambda: step(params, opt.init(params), fpad, neg_ids))[1]
+    before = mesh.staged_bytes
+    # the same step again, from the same parameters: timed warm
+    (p1, st1, loss), step_ms = _rank_ms(mesh, lambda: step(params, opt.init(params), fpad,
+                                                           neg_ids))
+    return dict(forward=y, overlap=y_ov, loss=loss, params=p1, mu=st1["mu"],
+                forward_ms=fwd_ms, overlap_ms=ov_ms, step_ms=step_ms, first_step_ms=first_ms,
+                forward_staged_bytes=fwd_staged, step_staged_bytes=mesh.staged_bytes - before)
+
+
+def _par_transformer_rank(mesh, z: dict) -> dict:
+    """Part 2: TP, EP, PP and SP at the transformer's width, each timed on
+    its second call."""
+    t = _par_transformer_inputs(mesh.device, z)
+    calls = {"tp": lambda: make_tp_layer_forward(t["tp_cfg"], mesh)(t["tp"], t["tp_x"]),
+             "ep": lambda: make_ep_forward(t["ep_cfg"], mesh)(t["ep"], t["ep_x"]),
+             "pp": lambda: make_pp_forward(_pp_layer, mesh, z["pp_micro"])(t["pp"], t["pp_x"]),
+             "sp": lambda: make_ring_attention(mesh, z["sp_seq"])(*t["sp"])}
+    out = {}
+    for name, call in calls.items():
+        call()
+        out[name], out[f"{name}_ms"] = _rank_ms(mesh, call)
+    return out
+
+
+def _par_search_rank(mesh, s: dict) -> dict:
+    """Part 3: the scatter-gather search over the rank's corpus rows."""
+    rows = torch.from_numpy(np.load(s["corpus"][mesh.rank])).to(mesh.device)
+    queries = torch.from_numpy(s["queries"]).to(mesh.device)
+    search = make_distributed_search(mesh, s["n"], s["k"])
+    search(queries, rows)
+    (ids, scores), ms = _rank_ms(mesh, lambda: search(queries, rows))
+    return dict(ids=ids, scores=scores, ms=ms)
+
+
+def _par_gated_rank(mesh, s: dict) -> dict:
+    """Part 4: config 5 sharded over its blocks: the stateless loss and
+    gradient, gate_state_init, one drifted step under the global budget,
+    the gradient under the step's masks; the rank's kernel launches."""
+    part = torch.load(s["slices"][mesh.rank], map_location=mesh.device)
+    bdg = BlockDenseGraph(**part["bdg"])
+    shard = GatedShard(mesh, bdg, part["start"], part["stop"], s["nb_total"])
+    cfg = s["cfg"]
+    params = gated.gated_graph_transformer_init(0, cfg, device=mesh.device)
+    x0, x1 = part["x0"], part["x1"]
+    zeros = torch.zeros_like(x0)
+    train_cfg = dataclasses.replace(cfg, remat=True)
+    kernels.reset_launch_counts()
+    (loss, grads), vg_ms = _rank_ms(mesh, lambda: sharded_value_and_grad(
+        params, train_cfg, x0, shard, zeros))
+    state, init_ms = _rank_ms(mesh, lambda: sharded_gate_state_init(params, cfg, x0, shard))
+    (y, state1, nres), step_ms = _rank_ms(mesh, lambda: sharded_step(params, cfg, x1, shard,
+                                                                     state))
+    (mloss, mgrads), mg_ms = _rank_ms(mesh, lambda: sharded_value_and_grad(
+        params, train_cfg, x1, shard, zeros, keep_masks=state1["keep"]))
+    return dict(range=(shard.start, shard.stop), loss=loss, grads=grads, keep0=state["keep"],
+                state1=state1, nres=nres, y=y, masked_loss=mloss, masked_grads=mgrads,
+                launches=kernels.launch_counts(), value_grad_ms=vg_ms, init_ms=init_ms,
+                step_ms=step_ms, masked_grad_ms=mg_ms)
+
+
+def par_rank(mesh, spec: dict) -> dict:
+    """One rank of the [parallel] phase: the dry run's parts in its order."""
+    _rank_setup(mesh)
+    out = {"backend": mesh.backend}
+    t0 = time.perf_counter()
+    parts = (("halo", lambda: _par_halo_rank(mesh, spec["halo"])),
+             ("transformer", lambda: _par_transformer_rank(mesh, spec["transformer"])),
+             ("search", lambda: _par_search_rank(mesh, spec["search"])),
+             ("gated", lambda: _par_gated_rank(mesh, spec["gated"])))
+    for name, part in parts:
+        out[name] = part()
+        if mesh.rank == 0:   # progress, while the parent waits
+            say("parallel_rank0", part=name, seconds=round(time.perf_counter() - t0, 1))
+    out["staged_bytes"] = mesh.staged_bytes
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def par_nccl_rank(mesh, s: dict) -> dict:
+    """Part 5: part 1's forward at world 1 on the NCCL route (no staging)."""
+    _rank_setup(mesh)
+    cfg, params = _par_net(s["d"], s["heads"], mesh.device)
+    fwd = make_sharded_layer_forward(cfg, s["plan"], mesh)
+    feats = torch.from_numpy(s["fpad"]).to(mesh.device)
+    cold, cold_ms = _rank_ms(mesh, lambda: fwd(params, feats))
+    y, ms = _rank_ms(mesh, lambda: fwd(params, feats))
+    if not torch.equal(y, cold):
+        raise AssertionError("the world-1 forward differs between two calls")
+    return dict(cold_ms=cold_ms, forward=y, ms=ms, backend=mesh.backend, staged=mesh.staged,
+                staged_bytes=mesh.staged_bytes)
+
+
+def _par_write_slices(tmp: str, bdg, x0, x1) -> list[str]:
+    """Each rank's blocks of config 5's layout and features, one file a
+    rank (the layout is built once, here)."""
+    paths = []
+    b = bdg.block
+    for r, (start, stop) in enumerate(block_ranges(bdg.n_blocks, PAR_WORLD)):
+        sl = slice_block_dense(bdg, start, stop)
+        rows = slice(start * b, stop * b)
+        part = {"bdg": {f.name: (getattr(sl, f.name).cpu() if torch.is_tensor(getattr(sl, f.name))
+                                 else getattr(sl, f.name))
+                        for f in dataclasses.fields(sl)},
+                "start": start, "stop": stop, "x0": x0[rows].cpu(), "x1": x1[rows].cpu()}
+        paths.append(os.path.join(tmp, f"c5_rank{r}.pt"))
+        torch.save(part, paths[-1])
+    return paths
+
+
+def _grads_scaled(name: str, names: list, got, want, tol: float) -> float:
+    """Each leaf's gradient within tol of its own scale, or, for a leaf
+    whose gradient is rounding noise (a scale below 1e-6 of the largest
+    leaf's: the attention key bias, whose exact gradient is 0), within tol
+    of the largest leaf's scale. Returns the largest relative error."""
+    top = max(float(w.abs().max()) for w in want)
+    worst = 0.0
+    for leaf, gl, wl in zip(names, got, want):
+        own = float(wl.abs().max())
+        scale = max(own if own >= 1e-6 * top else top, 1e-30)
+        err = float((gl.to(wl.device).float() - wl.float()).abs().max()) / scale
+        worst = max(worst, err)
+        if err > tol:
+            raise AssertionError(f"{name}: {leaf} off by {err:.3e} of its scale (limit {tol})")
+    return worst
+
+
+def _gated_leaf_names(params) -> list:
+    return [f"{li}/{'/'.join(k)}" for li, layer in enumerate(params)
+            for k in gated._flatten(layer)[0]]
+
+
+def _agree_adam(name: str, got, want, grads_want, lr: float, eps: float = 1e-8) -> dict:
+    """One Adam step's parameters from gradients that agree within d =
+    PAR_GRAD_TOL of their scale (as _grads_scaled holds them). The first
+    step moves each parameter by lr g / (|g| + eps), which moves by at most
+    lr eps d / (|g| - d + eps)^2 when g moves by d, and by up to 2 lr where
+    |g| <= d (its sign may flip); parameters must agree within that bound
+    plus 1e-6. Returns the largest error and how many elements sit at the
+    sign bound."""
+    top = max(float(g.abs().max()) for g in tree_leaves(grads_want))
+    worst, flips = 0.0, 0
+    for g, w, gw in zip(tree_leaves(got), tree_leaves(want), tree_leaves(grads_want)):
+        own = float(gw.abs().max())
+        d = PAR_GRAD_TOL * (own if own >= 1e-6 * top else top)
+        mag = gw.abs()
+        bound = torch.where(mag > d, lr * eps * d / (mag - d + eps) ** 2,
+                            torch.full_like(mag, 2 * lr)) + 1e-6
+        err = (g.to(w.device) - w).abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{name}: a parameter moved {float((err - bound).max()):.3e} "
+                                 "past Adam's bound")
+        worst = max(worst, float(err.max()))
+        flips += int((mag <= d).sum())
+    say("agree", name=name, max_abs_err=worst, sign_bound_elements=flips, ok=True)
+    return {"max_abs_err": worst, "sign_bound_elements": flips}
+
+
+def _agree_abs(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """agree() within an absolute limit, as the JAX tests' assert_allclose(atol=tol)."""
+    return agree(name, got, want, torch.float32, tol=(tol, tol))
+
+
+def _par_c5_inputs(d: int, c5: dict | None):
+    """Config 5's layout and layer-0 input (the serving phase's when it
+    ran) and a drifted copy of the features."""
+    if c5 is not None:
+        bdg, x0 = c5["bdg"], c5["x0"].reshape(-1, d)
+    else:
+        feats, idx, ew = cluster_graph(C5_NODES, d, C5_K)
+        bdg = build_block_dense(idx.cpu().numpy(), np.ones((C5_NODES, C5_K), np.float32),
+                                ew.cpu().numpy(), block=C5_BLOCK, device=DEV)
+        x0 = bdg.pad_features(feats)
+    noise = torch.Generator(device=DEV).manual_seed(17)
+    x1 = x0 + C5_DRIFT * torch.randn(x0.shape, generator=noise, device=DEV) * \
+        bdg.node_pad.reshape(-1, 1)
+    return bdg, x0, x1
+
+
+def phase_parallel(feats_np: np.ndarray, graph: NeighborGraph, d: int, heads: int,
+                   c5: dict | None = None) -> dict:
+    """The multichip dry run's sharded paths at full width, PAR_WORLD rank
+    processes (on one card: gloo, collectives staged through the host; on
+    a machine with PAR_WORLD cards: NCCL, a card each), each part held
+    against the same computation in this process:
+    1. RuvectorNet halo-sharded on the bench graph (build_halo_plan with
+       reorder="cluster"): forward, overlap forward, one Adam step;
+    2. TP, EP, PP and SP at the transformer's width;
+    3. the distributed search over the re-rank's corpus;
+    4. config 5 sharded over its blocks: loss and gradient, gate state,
+       a drifted step under the global budget, the masked gradient;
+    5. part 1's forward at world 1 on the NCCL route.
+    Four ranks on one card measure correctness and the staging cost, not
+    scaling."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        return _phase_parallel(feats_np, graph, d, heads, c5, tmp, t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_parallel(feats_np, graph, d, heads, c5, tmp, t_phase) -> dict:
+    n = graph.num_nodes
+    cfg, params = _par_net(d, heads, DEV)
+    # --- part 1's inputs: the plans, built once here -----------------------
+    t0 = time.perf_counter()
+    plan, perm = build_halo_plan(graph, PAR_WORLD, reorder="cluster")
+    ov_plan, ov_perm = build_overlap_plan(graph, PAR_WORLD, reorder="cluster")
+    plans_s = time.perf_counter() - t0
+    fpad = pad_features_for_plan(feats_np, plan, perm, device=DEV)
+    ov_fpad = np.zeros((ov_plan.n_shards * ov_plan.block, d), np.float32)
+    live = ov_perm >= 0
+    ov_fpad[live] = feats_np[ov_perm[live]]
+    n_pad = plan.n_shards * plan.block
+    neg_ids = np.random.default_rng(5).integers(0, n, size=(n_pad, PAR_NEGS)).astype(np.int32)
+    halo_spec = dict(d=d, heads=heads, plan=plan, ov_plan=ov_plan, fpad=fpad.cpu().numpy(),
+                     ov_fpad=ov_fpad, neg_ids=neg_ids, lr=PAR_LR)
+    # --- part 3's corpus, one file a rank ------------------------------------
+    corpus = bench_features(RR_NODES, d)
+    rng = np.random.default_rng(8)
+    queries = (corpus[rng.integers(0, RR_NODES, PAR_SEARCH_Q)]
+               + RR_NOISE * rng.standard_normal((PAR_SEARCH_Q, d))).astype(np.float32)
+    block = RR_NODES // PAR_WORLD
+    corpus_files = []
+    for r in range(PAR_WORLD):
+        corpus_files.append(os.path.join(tmp, f"corpus_rank{r}.npy"))
+        np.save(corpus_files[-1], corpus[r * block:(r + 1) * block])
+    # --- part 4's layout, one file a rank ------------------------------------
+    gcfg = config5_config(d, heads)
+    bdg, x0, x1 = _par_c5_inputs(d, c5)
+    slices = _par_write_slices(tmp, bdg, x0, x1)
+    spec = dict(halo=halo_spec, transformer=_par_sizes(),
+                search=dict(corpus=corpus_files, queries=queries, n=RR_NODES, k=PAR_SEARCH_K),
+                gated=dict(slices=slices, cfg=gcfg, nb_total=bdg.n_blocks))
+    setup_s = time.perf_counter() - t0
+
+    # --- the ranks ------------------------------------------------------------
+    t0 = time.perf_counter()
+    res = run_ranks(par_rank, PAR_WORLD, spec, device=DEV)
+    ranks_s = time.perf_counter() - t0
+    # gloo where the ranks share a card, NCCL where each has its own
+    backend = rank_devices(PAR_WORLD, DEV)[1]
+    if any(r["backend"] != backend for r in res):
+        raise AssertionError(f"the ranks ran on {[r['backend'] for r in res]}, not {backend}")
+
+    # --- part 1 against one process ---------------------------------------------
+    t0 = time.perf_counter()
+    feats = torch.from_numpy(feats_np).to(DEV)
+    single = ruvector_net_apply(params, cfg, feats, graph)
+    single_ms = time_ms(lambda: ruvector_net_apply(params, cfg, feats, graph), iters=5)
+    want = single[torch.from_numpy(perm).to(DEV)]
+    out = torch.cat([r["halo"]["forward"] for r in res]).to(DEV)
+    err_fwd = _agree_abs("parallel halo: sharded forward vs one process", out[:n], want,
+                             PAR_HALO_TOL)
+    if bool(out[n:].any()):
+        raise AssertionError("padding rows of the sharded forward are not zero")
+    blocked_fwd = make_blocked_layer_forward(cfg, plan, DEV)
+    blocked = blocked_fwd(params, fpad)
+    blocked_ms = time_ms(lambda: blocked_fwd(params, fpad), iters=5)
+    _agree_abs("parallel halo: blocked forward vs one process", blocked[:n], want,
+                   PAR_HALO_TOL)
+    ov_out = torch.cat([r["halo"]["overlap"] for r in res]).to(DEV)
+    live_t = torch.from_numpy(np.nonzero(live)[0]).to(DEV)
+    _agree_abs("parallel halo: overlap forward vs one process", ov_out[live_t],
+                   single[torch.from_numpy(ov_perm[live]).to(DEV)], PAR_HALO_TOL)
+    opt = adam(PAR_LR)
+    bstate = opt.init(params)
+    p_b, st_b, loss_b = make_blocked_train_step(cfg, plan, opt, device=DEV)(
+        params, bstate, fpad, torch.from_numpy(neg_ids).to(DEV))
+    losses = [float(r["halo"]["loss"]) for r in res]
+    if len(set(losses)) != 1 or abs(losses[0] - float(loss_b)) > 1e-5 * abs(float(loss_b)):
+        raise AssertionError(f"sharded step losses {losses} vs the blocked step's "
+                             f"{float(loss_b)}")
+    # Adam's first moment after one step is (1 - b1) g
+    g_b = tree_map(lambda m: m / (1 - 0.9), st_b["mu"])
+    g_s = tree_map(lambda m: m / (1 - 0.9), res[0]["halo"]["mu"])
+    grad_err = _grads_scaled("parallel halo: sharded step gradients vs blocked step",
+                             [str(i) for i in range(len(tree_leaves(g_b)))],
+                             tree_leaves(g_s), tree_leaves(g_b), PAR_GRAD_TOL)
+    for r in res[1:]:
+        for a, b in zip(tree_leaves(r["halo"]["params"]), tree_leaves(res[0]["halo"]["params"])):
+            if not torch.equal(a, b):
+                raise AssertionError("the ranks' parameters differ after the step")
+    adam_err = _agree_adam("parallel halo: sharded Adam step vs blocked step",
+                           res[0]["halo"]["params"], p_b, g_b, PAR_LR)
+    h = [r["halo"] for r in res]
+    say("parallel_halo", nodes=n, d=d, heads=heads, layers=2, world=PAR_WORLD, halo=plan.halo,
+        block=plan.block, overlap_bmax=ov_plan.bmax, overlap_interior=ov_plan.n_interior,
+        plans_s=round(plans_s, 3), one_process_ms=single_ms, blocked_ms=blocked_ms,
+        forward_ms=[round(x["forward_ms"], 3) for x in h],
+        overlap_ms=[round(x["overlap_ms"], 3) for x in h],
+        step_ms=[round(x["step_ms"], 3) for x in h],
+        first_step_ms=[round(x["first_step_ms"], 3) for x in h],
+        forward_staged_bytes=h[0]["forward_staged_bytes"],
+        step_staged_bytes=h[0]["step_staged_bytes"], forward_max_abs_err=err_fwd,
+        loss=losses[0], loss_blocked=float(loss_b), grad_rel_err=grad_err,
+        adam_max_abs_err=adam_err["max_abs_err"],
+        adam_sign_bound_elements=adam_err["sign_bound_elements"])
+    part1_s = time.perf_counter() - t0
+
+    # --- part 2 against the references ------------------------------------------
+    t = _par_transformer_inputs(DEV, _par_sizes())
+    ref_calls = {"tp": lambda: reference_tp_layer_forward(t["tp"], t["tp_cfg"], t["tp_x"]),
+                 "ep": lambda: reference_ep_forward(t["ep"], t["ep_cfg"], t["ep_x"]),
+                 "pp": lambda: reference_pp_forward(_pp_layer, t["pp"], t["pp_x"]),
+                 "sp": lambda: reference_attention(*t["sp"])}
+    errs = {}
+    for name in ("tp", "ep", "pp"):
+        errs[name] = max(_agree_abs(f"parallel {name}: rank {i} vs reference",
+                                        r["transformer"][name].to(DEV), ref_calls[name](),
+                                        PAR_TOL) for i, r in enumerate(res))
+    ring = torch.cat([r["transformer"]["sp"] for r in res]).to(DEV)
+    errs["sp"] = _agree_abs("parallel sp: ring attention vs dense", ring, ref_calls["sp"](),
+                                PAR_RING_TOL)
+    ref_ms = {k: time_ms(call, iters=5) for k, call in ref_calls.items()}
+    tr = [r["transformer"] for r in res]
+    say("parallel_transformer", tp=PAR_TP, tp_tokens=PAR_TP_TOKENS, ep=PAR_EP,
+        ep_tokens=PAR_EP_TOKENS, pp_stages=PAR_WORLD, pp_micro=PAR_PP_MICRO,
+        pp_rows=PAR_PP_ROWS, pp_d=PAR_PP_D, sp_seq=PAR_SP_SEQ, sp_d=PAR_SP_D,
+        **{f"{k}_max_abs_err": v for k, v in errs.items()},
+        **{f"{k}_ms": [round(x[f"{k}_ms"], 3) for x in tr] for k in ("tp", "ep", "pp", "sp")},
+        **{f"{k}_one_process_ms": v for k, v in ref_ms.items()})
+
+    # --- part 3 against one process ---------------------------------------------
+    corpus_t = torch.from_numpy(corpus).to(DEV)
+    q_t = torch.from_numpy(queries).to(DEV)
+    s1, i1 = torch.topk(pairwise_cosine(q_t, corpus_t), PAR_SEARCH_K, dim=1, sorted=True)
+    search_ms = time_ms(lambda: torch.topk(pairwise_cosine(q_t, corpus_t), PAR_SEARCH_K, dim=1,
+                                           sorted=True), iters=5)
+    del corpus_t, corpus
+    for i, r in enumerate(res):
+        same_topk(f"parallel search: rank {i} vs one process", i1.cpu().numpy(),
+                  s1.cpu().numpy(), r["search"]["ids"].numpy(), r["search"]["scores"].numpy(),
+                  tol=1e-5)
+    say("parallel_search", corpus=RR_NODES, d=d, queries=PAR_SEARCH_Q, k=PAR_SEARCH_K,
+        ms=[round(r["search"]["ms"], 3) for r in res], one_process_ms=search_ms)
+
+    # --- part 4 against one process ---------------------------------------------
+    t0 = time.perf_counter()
+    gparams = gated.gated_graph_transformer_init(0, gcfg, device=DEV)
+    train_cfg = dataclasses.replace(gcfg, remat=True)
+    loss, _, grads = _loss_and_grads(gparams, train_cfg, x0, bdg, None)
+    torch.cuda.empty_cache()
+    state = gated.gate_state_init(gparams, gcfg, x0, bdg)
+    y_ref, st1, nres = gated.gated_graph_transformer_step(gparams, gcfg, x1, bdg, state)
+    mloss, _, mgrads = _loss_and_grads(gparams, train_cfg, x1, bdg, st1["keep"])
+    g = [r["gated"] for r in res]
+    ranges = [x["range"] for x in g]
+    if ranges != block_ranges(bdg.n_blocks, PAR_WORLD):
+        raise AssertionError(f"rank block ranges {ranges}")
+    for i, x in enumerate(g):
+        for nm, got_l, want_l in (("loss", x["loss"], loss), ("masked loss", x["masked_loss"],
+                                                              mloss)):
+            if abs(float(got_l) - float(want_l)) > 1e-5 * abs(float(want_l)):
+                raise AssertionError(f"rank {i} {nm} {float(got_l)} vs {float(want_l)}")
+    names = _gated_leaf_names(gparams)
+    gerr = max(_grads_scaled(f"parallel gated grads, rank {i}", names, _leaves(x["grads"]),
+                             grads, PAR_GRAD_TOL) for i, x in enumerate(g))
+    mgerr = max(_grads_scaled(f"parallel gated masked grads, rank {i}", names,
+                              _leaves(x["masked_grads"]), mgrads, PAR_GRAD_TOL)
+                for i, x in enumerate(g))
+    if not torch.equal(torch.cat([x["keep0"] for x in g], dim=1).to(DEV), state["keep"]):
+        raise AssertionError("sharded gate_state_init masks differ from one process's")
+    for key in ("keep", "sig", "age"):
+        if not torch.equal(torch.cat([x["state1"][key] for x in g], dim=1).to(DEV), st1[key]):
+            raise AssertionError(f"sharded step {key} differs from one process's")
+    if any(x["nres"] != nres for x in g):
+        raise AssertionError(f"sharded step re-solved {[x['nres'] for x in g]} vs {nres}")
+    budget = max(1, int(bdg.n_blocks * gcfg.max_resolve_frac))
+    if not 0 < nres <= gcfg.num_layers * budget:
+        raise AssertionError(f"the drifted step re-solved {nres} (budget {budget} a layer)")
+    y_err = _agree_abs("parallel gated: sharded step output vs one process",
+                           torch.cat([x["y"] for x in g]).to(DEV), y_ref, PAR_TOL)
+    per_rank = {k: [x["launches"][k] for x in g] for k in kernels.launch_counts()}
+    missing = {k: v for k, v in per_rank.items() if k in PAR_C5_KERNELS and min(v) < 1}
+    if missing:
+        raise AssertionError(f"kernels not launched on every rank: {missing}")
+    say("parallel_gated", nodes=bdg.n_blocks * bdg.block, nB=bdg.n_blocks, B=bdg.block,
+        ranges=ranges, budget=budget, resolved=nres, loss=float(loss),
+        masked_loss=float(mloss), grad_rel_err=gerr, masked_grad_rel_err=mgerr,
+        step_max_abs_err=y_err, masks_equal=True,
+        value_grad_ms=[round(x["value_grad_ms"], 3) for x in g],
+        init_ms=[round(x["init_ms"], 3) for x in g], step_ms=[round(x["step_ms"], 3) for x in g],
+        masked_grad_ms=[round(x["masked_grad_ms"], 3) for x in g],
+        launches_per_rank={k: v for k, v in per_rank.items() if any(v)})
+    part4_s = time.perf_counter() - t0
+    del grads, mgrads, y_ref, st1, state
+    torch.cuda.empty_cache()
+
+    # --- part 5: world 1 on NCCL ----------------------------------------------------
+    t0 = time.perf_counter()
+    plan1, _ = build_halo_plan(graph, 1)
+    (one,) = run_ranks(par_nccl_rank, 1, dict(d=d, heads=heads, plan=plan1, fpad=feats_np),
+                       device=DEV)
+    if one["backend"] != "nccl" or one["staged"] or one["staged_bytes"]:
+        raise AssertionError(f"the world-1 run took {one['backend']} with "
+                             f"{one['staged_bytes']} bytes staged")
+    nccl_err = _agree_abs("parallel nccl: world-1 forward vs one process",
+                              one["forward"].to(DEV), single, PAR_HALO_TOL)
+    say("parallel_nccl", world=1, backend=one["backend"], staged_bytes=one["staged_bytes"],
+        forward_ms=round(one["ms"], 3), first_call_ms=round(one["cold_ms"], 3),
+        max_abs_err=nccl_err, seconds=round(
+            time.perf_counter() - t0, 1))
+    staged = [r["staged_bytes"] for r in res]
+    say("parallel", world=PAR_WORLD, backend=backend, cards=torch.cuda.device_count(),
+        staged_bytes_per_rank=staged,
+        rank_seconds=[round(r["seconds"], 1) for r in res], setup_s=round(setup_s, 1),
+        ranks_s=round(ranks_s, 1), part1_check_s=round(part1_s, 1),
+        part4_check_s=round(part4_s, 1), seconds=round(time.perf_counter() - t_phase, 1))
+    return {"launches_per_rank": per_rank}
+
+
 def config5_config(d: int, heads: int) -> gated.GatedGraphTransformerConfig:
     """Config 5: dim 128, 4 heads, FFN x4, 2 layers, lam 0.5, eps 0.01,
     hysteresis band 0.05, budget nB/16, bf16 compute on f32 features."""
@@ -5371,6 +5940,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     phase_transformer()
     say("transformer_memory", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
+    par = phase_parallel(feats_np, graph, d, heads, c5)
 
     # --- kernels at the main paths' shapes ------------------------------------
     report = []
@@ -5447,6 +6017,7 @@ def main() -> int:
             source, replaces = SOURCES[name]
             if launches[name] < 1 and name not in OFF_PATH:
                 raise AssertionError(f"{name} was not launched on its path")
+            extra["parallel_launches_per_rank"] = par["launches_per_rank"][name]
             lines.append({"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "launches": launches[name],
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -5467,11 +6038,12 @@ def main() -> int:
 
 # the phases that run alone (`python3 chip_smoke.py solver
 # graph_transformer_rest sona training_utils`, `python3 chip_smoke.py
-# native index graph_store mincut`): on the 100k-node graph, for
-# iterating on them without the whole script; `training_utils` builds K1's
-# source (its profiled layer), `index` and `graph_store` K3's
+# native index graph_store mincut`, `python3 chip_smoke.py parallel`): on
+# the 100k-node graph, for iterating on them without the whole script;
+# `training_utils` builds K1's source (its profiled layer), `index` and
+# `graph_store` K3's, `parallel` config 5's four
 PHASES_ALONE = ("solver", "graph_transformer_rest", "sona", "training_utils", "native",
-                "index", "graph_store", "mincut")
+                "index", "graph_store", "mincut", "parallel")
 
 
 def phases_alone(names: list[str]) -> int:
@@ -5502,6 +6074,10 @@ def phases_alone(names: list[str]) -> int:
         phase_graph_store(feats_np, feats, labels, graph, d, heads)
     if "mincut" in names:
         phase_mincut(graph, labels)
+    if "parallel" in names:
+        say("build_sources", **{k: round(v, 1) for k, v in _lib.build(PAR_SOURCES).items()})
+        _native_runtime()
+        phase_parallel(feats_np, graph, d, heads)
     if "training_utils" in names:
         say("build_sources", **{k: round(v, 1) for k, v in _lib.build(("block_dense_attn",)).items()})
         cfg = RuvectorLayerConfig(d, d, heads=heads, compute_dtype="bfloat16")

@@ -36,9 +36,14 @@ and its recompute backward (K5a/K5b) inside, as the JAX package's
 custom_vjp does; the graph's edge table, the gate words and pad get no
 gradient. `remat` checkpoints each layer (torch.utils.checkpoint).
 
-The JAX package's chunked routes (`_ceil_chunked_map`, `_CHUNK_NB`,
-`_loss_chunked_halo_free`) exist to fit 10M nodes into 16 GB of TPU
-memory and are not ported: the straight path runs at every nB.
+The stateless forward solves its gates in runs of `gate_chunk`
+partitions, as the JAX package's `_ceil_chunked_map` does there: each
+run's gates once, without autograd, and its attention checkpointed (at
+999,936 nodes the whole [nB, H, B, B] logits and the gate's buffers
+would not fit beside a training step). The JAX package's
+other chunked routes (`_CHUNK_NB`, `_loss_chunked_halo_free`) exist to
+fit 10M nodes into 16 GB of TPU memory and are not ported: the straight
+path runs at every nB.
 
 The step branches on the host where JAX uses `lax.cond` (any partition
 flagged?), which is one device-to-host sync per layer per step.
@@ -90,6 +95,9 @@ class GatedGraphTransformerConfig:
     num_layers: int = 2
     lam: float = 0.5            # gate threshold multiplier (mincut.rs:163)
     eps: float = 0.01           # positive-logit clamp
+    # partitions a gate run of the stateless forward takes at a time
+    # (memory bound)
+    gate_chunk: int = 256
     # 'pooled': one gate per partition over the head-mean logits, mask
     # shared across heads; 'per_head': one gate per head (stateless only)
     gate_mode: str = "pooled"
@@ -155,10 +163,50 @@ def _ln(p: dict, x: torch.Tensor) -> torch.Tensor:
 # stateless forward (gates solved inside every call)
 # ---------------------------------------------------------------------------
 
+def _chunk_logits(q, k, vm):
+    dh = q.shape[-1]
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / dh ** 0.5)
+    return torch.where(vm > 0, logits, torch.full_like(logits, -1.0))
+
+
+def _chunk_pad(node_pad):
+    padf = node_pad.float()
+    return padf[:, None, :, None] * padf[:, None, None, :]
+
+
+def _chunk_gate(cfg, q, k, node_pad):
+    """The gates of a run of partitions (no gradient flows through them):
+    q, k [C, H, B, dh], node_pad [C, B]. Returns (masked logits [C, H, B,
+    B], keep [C, H|1, B, B] bool, cut_cost [C, H])."""
+    c, hh, b, _ = q.shape
+    logits = _chunk_logits(q, k, _chunk_pad(node_pad))
+    if cfg.gate_mode == "pooled":
+        keep1, cost1 = mincut_gate_device(torch.mean(logits, dim=1), cfg.lam, cfg.eps)
+        return logits, keep1[:, None], cost1[:, None].expand(c, hh)
+    keep, cost = mincut_gate_device(logits.reshape(c * hh, b, b), cfg.lam, cfg.eps)
+    return logits, keep.reshape(logits.shape), cost.reshape(c, hh)
+
+
+def _chunk_attention(q, k, v, node_pad, keep, logits=None):
+    """The MHA of a run of partitions under its gates: [C, H, B, dh].
+    `logits`, the run's masked logits where the gate has them and no
+    gradient is taken, spares recomputing them."""
+    vm = _chunk_pad(node_pad)
+    if logits is None:
+        logits = _chunk_logits(q, k, vm)
+    return torch.matmul(masked_softmax(logits, keep.float() * vm), v)
+
+
 def _gated_attention_block(h, node_pad, wq, wk, wv, wo, cfg):
     """Min-cut-gated MHA within each partition. h [nB, B, D], node_pad
     [nB, B]. Returns ([nB, B, D], (cut_applied [nB, H] bool, cut_cost
-    [nB, H]))."""
+    [nB, H])). The partitions go through in runs of cfg.gate_chunk (the
+    JAX package's `_ceil_chunked_map`; the runs are independent, so the
+    result does not depend on the chunk): each run's gates are solved once
+    without autograd. Without autograd the attention reuses the gate's
+    logits; under autograd it is checkpointed, so only one run's [C, H,
+    B, B] logits and gate buffers are live at a time and a backward
+    recomputes the logits but not the gates."""
     nb, b, d = h.shape
     hh, dh = cfg.num_heads, cfg.head_dim
 
@@ -166,20 +214,21 @@ def _gated_attention_block(h, node_pad, wq, wk, wv, wo, cfg):
         return torch.matmul(h.float(), w.float()).reshape(nb, b, hh, dh).permute(0, 2, 1, 3)
 
     q, k, v = proj(wq), proj(wk), proj(wv)
-    padf = node_pad.float()
-    vm = padf[:, None, :, None] * padf[:, None, None, :]
-    logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / dh ** 0.5)
-    logits = torch.where(vm > 0, logits, torch.full_like(logits, -1.0))
-    if cfg.gate_mode == "pooled":
-        keep1, cost1 = mincut_gate_device(torch.mean(logits, dim=1), cfg.lam, cfg.eps)
-        keep = keep1[:, None].expand_as(logits)
-        cost = cost1[:, None].expand(nb, hh)
-    else:
-        keep, cost = mincut_gate_device(logits.reshape(nb * hh, b, b), cfg.lam, cfg.eps)
-        keep, cost = keep.reshape(logits.shape), cost.reshape(nb, hh)
-    attn = masked_softmax(logits, keep.float() * vm)
-    out = torch.matmul(attn, v).permute(0, 2, 1, 3).reshape(nb, b, d)
-    return torch.matmul(out, wo.float()) * padf[..., None], (cost > 0, cost)
+    outs, costs = [], []
+    for c0 in range(0, nb, cfg.gate_chunk):
+        run = slice(c0, c0 + cfg.gate_chunk)
+        with torch.no_grad():
+            logits, keep, cost = _chunk_gate(cfg, q[run], k[run], node_pad[run])
+        args = (q[run], k[run], v[run], node_pad[run], keep)
+        if torch.is_grad_enabled():
+            outs.append(torch.utils.checkpoint.checkpoint(_chunk_attention, *args,
+                                                          use_reentrant=False))
+        else:
+            outs.append(_chunk_attention(*args, logits))
+        costs.append(cost)
+    out = torch.cat(outs).permute(0, 2, 1, 3).reshape(nb, b, d)
+    cost = torch.cat(costs)
+    return torch.matmul(out, wo.float()) * node_pad.float()[..., None], (cost > 0, cost)
 
 
 def _neighbor_mix(h, bdg: BlockDenseGraph, w_gnn):
@@ -558,12 +607,18 @@ def gate_state_init(params, cfg: GatedGraphTransformerConfig, fpad, bdg: BlockDe
     """Solve every partition's gate once and record the signatures.
     Returns {"keep": [L, nB, ceil(B/32), B] int32 (pack_keep), "sig":
     [L, nB] float32, "age": [L, nB] int32}."""
+    return _gate_state_init(params, cfg, fpad, bdg, bdg.n_blocks, 0)
+
+
+def _gate_state_init(params, cfg, fpad, bdg: BlockDenseGraph, nb_total: int, offset: int):
+    """gate_state_init over partitions [offset, offset + nB) of a model of
+    nb_total partitions (a rank's share; parallel/gated.py)."""
     if cfg.gate_mode != "pooled":
         raise ValueError(
             "temporal gate reuse operates on the pooled (head-mean) gate "
             "granularity; use the stateless apply for per_head mode")
     nb, b = bdg.n_blocks, bdg.block
-    check_gate_age_feasibility(cfg, nb)
+    check_gate_age_feasibility(cfg, nb_total)
     x = fpad.reshape(nb, b, -1)
     fused = _use_fused_attn(cfg, x.device)
     gate_kernel = fused and b % 32 == 0
@@ -583,23 +638,40 @@ def gate_state_init(params, cfg: GatedGraphTransformerConfig, fpad, bdg: BlockDe
     if cfg.max_gate_age > 0:
         # staggered initial ages, so that the partitions do not all reach
         # the hard bound on the same step
-        age0 += torch.arange(nb, dtype=torch.int32, device=x.device) % cfg.max_gate_age
+        age0 += torch.arange(offset, offset + nb, dtype=torch.int32,
+                             device=x.device) % cfg.max_gate_age
     return {"keep": torch.stack(keeps), "sig": torch.stack(sigs), "age": age0}
 
 
-def _refresh(flagged, drift, keep_prev, sig_prev, age, sig, solve_masks, budget):
+class _LocalBudget:
+    """The re-solve selection over the partitions of one process."""
+
+    @staticmethod
+    def any(mask: torch.Tensor) -> bool:
+        return bool(mask.any())
+
+    @staticmethod
+    def top(score: torch.Tensor, flagged: torch.Tensor, budget: int):
+        """(indices of the partitions to re-solve, how many): the `budget`
+        highest scores among the flagged partitions; equal scores take the
+        lower index first, as lax.top_k does."""
+        idx = torch.sort(score, descending=True, stable=True).indices[:budget]
+        idx = idx[flagged[idx]]
+        return idx, int(idx.numel())
+
+
+def _refresh(flagged, drift, keep_prev, sig_prev, age, sig, solve_masks, budget, select):
     """Re-solve up to `budget` flagged partitions, oldest first (then by
-    drift; equal scores take the lower index first, as lax.top_k does).
-    Returns (keep, sig, age, number re-solved)."""
+    drift), chosen by `select`. Returns (keep, sig, age, number
+    re-solved)."""
     score = torch.where(flagged, age.float() * 1e6 + drift, torch.full_like(drift, -1.0))
-    idx = torch.sort(score, descending=True, stable=True).indices[:budget]
-    idx = idx[flagged[idx]]
+    idx, n = select.top(score, flagged, budget)
     keep_l, sig_l, age_l = keep_prev.clone(), sig_prev.clone(), age.clone()
     if idx.numel():
         keep_l[idx] = solve_masks(idx)
         sig_l[idx] = sig[idx]
         age_l[idx] = 0
-    return keep_l, sig_l, age_l, int(idx.numel())
+    return keep_l, sig_l, age_l, n
 
 
 def gated_graph_transformer_step(params, cfg: GatedGraphTransformerConfig, fpad,
@@ -613,11 +685,20 @@ def gated_graph_transformer_step(params, cfg: GatedGraphTransformerConfig, fpad,
     re-solve of the oldest max_resolve of them, and the layer under the
     refreshed masks. Undrifted partitions keep their stored mask.
     """
+    return _step(params, cfg, fpad, bdg, state, max_resolve, bdg.n_blocks, _LocalBudget)
+
+
+def _step(params, cfg, fpad, bdg: BlockDenseGraph, state: dict, max_resolve, nb_total: int,
+          select):
+    """gated_graph_transformer_step over this process's nB partitions of a
+    model of nb_total: the budget is taken over nb_total, and `select`
+    picks the partitions to re-solve (a rank's share takes a global
+    choice; parallel/gated.py)."""
     nb, b = bdg.n_blocks, bdg.block
     if max_resolve is None:
-        max_resolve = max(1, int(nb * cfg.max_resolve_frac))
-    max_resolve = min(max_resolve, nb)
-    check_gate_age_feasibility(cfg, nb, max_resolve)
+        max_resolve = max(1, int(nb_total * cfg.max_resolve_frac))
+    max_resolve = min(max_resolve, nb_total)
+    check_gate_age_feasibility(cfg, nb_total, max_resolve)
     x = fpad.reshape(nb, b, -1)
     new_keep, new_sig, new_age = [], [], []
     resolved = 0
@@ -652,17 +733,17 @@ def gated_graph_transformer_step(params, cfg: GatedGraphTransformerConfig, fpad,
             flagged = flagged | (age >= cfg.max_gate_age)
         keep_l, sig_l, age_l = state["keep"][li], prev_sig, age
         # zero drift: no solve at all (one host sync per layer)
-        if bool(flagged.any()):
+        if select.any(flagged):
             keep_l, sig_l, age_l, nres = _refresh(flagged, drift, keep_l, sig_l, age_l, sig,
-                                                  solve_masks, max_resolve)
+                                                  solve_masks, max_resolve, select)
             resolved += nres
         if cfg.max_gate_age > 0:
             # budget escalation: partitions still at or over the age bound
             # get a second budget-sized solve
             overflow = age_l >= cfg.max_gate_age
-            if bool(overflow.any()):
+            if select.any(overflow):
                 keep_l, sig_l, age_l, nres = _refresh(overflow, drift, keep_l, sig_l, age_l,
-                                                      sig, solve_masks, max_resolve)
+                                                      sig, solve_masks, max_resolve, select)
                 resolved += nres
         new_keep.append(keep_l)
         new_sig.append(sig_l)

@@ -53,6 +53,27 @@ def tree_unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def requiring_grad(params):
+    """params with fresh leaves that require grad."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), params)
+
+
+def tree_grad(loss, req, reduce=None):
+    """The gradient of loss for every leaf of the tree req (a leaf that
+    loss does not reach gets zeros). With `reduce`, the leaves' gradients
+    go through it as one flat vector in JAX's sorted leaf order, so a
+    sharded step sums its whole tree in one all-reduce."""
+    leaves = sorted_leaves(req)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+    if reduce is not None:
+        flat = reduce(torch.cat([g.reshape(-1) for g in grads]))
+        sizes = [g.numel() for g in grads]
+        grads = [f.reshape(g.shape) for f, g in zip(torch.split(flat, sizes), grads)]
+    by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+    return tree_map(lambda t: by_leaf[id(t)], req)
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]

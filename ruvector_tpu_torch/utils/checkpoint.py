@@ -109,8 +109,9 @@ def save_checkpoint(directory: str | Path, tree: Any, step: int = 0) -> str:
 def restore_checkpoint(directory: str | Path, target: Any, step: int = 0) -> Any:
     """Restore into the structure of `target` (pytree prototype): each leaf
     a tensor of the target leaf's dtype, on the target leaf's device (the
-    card for a leaf that is not a tensor). Raises ValueError when the
-    checksum does not match."""
+    card for a leaf that is not a tensor), except that a Python number
+    stays a Python number of its type. Raises ValueError when the checksum
+    does not match."""
     directory = Path(directory)
     path = directory / f"ckpt_{step}"
     with np.load(str(path) + ".npz") as npz:
@@ -118,8 +119,17 @@ def restore_checkpoint(directory: str | Path, target: Any, step: int = 0) -> Any
     meta = json.loads((directory / f"ckpt_{step}.json").read_text())
     if _checksum(flat) != meta["checksum"]:
         raise ValueError(f"checkpoint corrupt: checksum mismatch at {path}")
-    return _unflatten(target, [_to_tensor(flat[_key(p)], leaf, _leaf_device(leaf))
+    return _unflatten(target, [_restored(flat[_key(p)], leaf)
                                for p, leaf in _paths_and_leaves(target)])
+
+
+def _restored(arr: np.ndarray, leaf):
+    """A stored leaf in the target leaf's form: a Python number stays a
+    Python number of its type (an optimizer's step count), anything else
+    becomes a tensor (_to_tensor) on the target leaf's device."""
+    if isinstance(leaf, (bool, int, float)):
+        return type(leaf)(arr.item())
+    return _to_tensor(arr, leaf, _leaf_device(leaf))
 
 
 # ---------------------------------------------------------------------------

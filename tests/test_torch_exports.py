@@ -25,9 +25,6 @@ PORT_ROOT = REPO / "ruvector_tpu_torch"
 # JAX modules the port does not have yet, and the ROADMAP item that ports
 # each; a name that a shared `__init__` re-exports from one waits for it
 WAITING = {
-    "parallel.ep": "item 23", "parallel.halo": "item 23", "parallel.mesh": "item 23",
-    "parallel.partition": "item 23", "parallel.pp": "item 23", "parallel.sp": "item 23",
-    "parallel.tp": "item 23",
     "serve.sql": "item 24",
 }
 
@@ -88,10 +85,12 @@ def test_shared_modules_cover_this_slice():
                 "native", "index", "index.filter", "index.hnsw", "index.hyperbolic_hnsw",
                 "index.vector_db", "graph", "graph.property", "graph.cypher", "mincut",
                 "mincut.dynamic", "mincut.global_dynamic", "mincut.local", "mincut.sparsify",
-                "mincut.expander", "mincut.jtree"):
+                "mincut.expander", "mincut.jtree", "parallel", "parallel.mesh",
+                "parallel.partition", "parallel.halo", "parallel.tp", "parallel.ep",
+                "parallel.pp", "parallel.sp", "parallel.multihost", "serve.distributed"):
         assert rel in SHARED, rel
     assert not set(WAITING) & set(SHARED), "a ported module is still listed as waiting"
-    assert set(WAITING.values()) == {"item 23", "item 24"}
+    assert set(WAITING.values()) == {"item 24"}
 
 
 @pytest.mark.parametrize("rel", SHARED, ids=lambda r: r or "<top>")

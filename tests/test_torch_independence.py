@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import ruvector_tpu_torch.ops.kernels as kernels
+import torch_parallel_ranks
 from ruvector_tpu_torch import resolve_device
 from ruvector_tpu_torch.attention import (
     EdgeFeaturedConfig,
@@ -52,6 +53,16 @@ from ruvector_tpu_torch.index import (
 )
 from ruvector_tpu_torch.index.hyperbolic_hnsw import HyperbolicConfig
 from ruvector_tpu_torch.mincut import spectral_sparsify
+from ruvector_tpu_torch.parallel import (
+    EpConfig,
+    HaloPlan,
+    TpLayerConfig,
+    ep_init,
+    make_blocked_layer_forward,
+    pad_features_for_plan,
+    run_ranks,
+    tp_layer_init,
+)
 from ruvector_tpu_torch.models import (
     GATConfig,
     GCNConfig,
@@ -129,6 +140,13 @@ _TINY = TransformerConfig(seq_len_max=16, hidden=16, heads=2, layers=2, window_n
 _TINY_CACHE = KVCacheConfig(hot_capacity=4, warm_capacity=4, archive_capacity=4, heads=2,
                             head_dim=8)
 
+# a one-shard halo plan of a 2-node graph
+_PLAN = HaloPlan(
+    n_shards=1, block=2, halo=1, send_idx=np.zeros((1, 1, 1), np.int32),
+    send_mask=np.zeros((1, 1, 1), np.float32), local_nbr_idx=np.zeros((1, 2, 1), np.int32),
+    nbr_mask=np.zeros((1, 2, 1), np.float32), edge_weight=np.zeros((1, 2, 1), np.float32),
+    node_pad_mask=np.ones((1, 2), np.float32))
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import ruvector_tpu_torch
@@ -163,6 +181,10 @@ for mod in ("native", "index.filter", "index.hnsw", "index.hyperbolic_hnsw", "in
             "graph.property", "graph.cypher", "mincut", "mincut.dynamic", "mincut.global_dynamic",
             "mincut.local", "mincut.sparsify", "mincut.expander", "mincut.jtree"):
     assert "ruvector_tpu_torch." + mod in names, mod
+for mod in ("parallel.mesh", "parallel.partition", "parallel.halo", "parallel.tp",
+            "parallel.ep", "parallel.pp", "parallel.sp", "parallel.multihost", "parallel.gated",
+            "serve.distributed"):
+    assert "ruvector_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -184,7 +206,7 @@ def test_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 145
+    assert int(count) >= 155
     assert bad == "[]"
 
 
@@ -284,6 +306,13 @@ _ENTRY_POINTS = {
     "HyperbolicIndex": lambda: HyperbolicIndex(HyperbolicConfig(dim=4)),
     "PropertyGraph.to_csr": lambda: PropertyGraph().to_csr(),
     "spectral_sparsify": lambda: spectral_sparsify([0, 1], [1, 2], [1.0, 1.0], 3),
+    "run_ranks": lambda: run_ranks(print, 2),
+    "tp_layer_init": lambda: tp_layer_init(0, TpLayerConfig(8, 2, 4, 16)),
+    "ep_init": lambda: ep_init(0, EpConfig(8, 16, 2)),
+    "pad_features_for_plan": lambda: pad_features_for_plan(
+        np.zeros((2, 2), np.float32), _PLAN, np.arange(2)),
+    "make_blocked_layer_forward": lambda: make_blocked_layer_forward(
+        RuvectorNetConfig(2, 4, heads=2), _PLAN),
 }
 
 
@@ -515,3 +544,11 @@ def test_kernel_build_dir_is_ignored():
     assert all((_lib.CSRC_DIR / f"{s}.cu").exists() for s in _lib.SOURCES)
     assert set(_lib.SIGNATURES) == set(_lib.SOURCES)
     assert all("sm_90a" in f for f in _lib.NVCC_FLAGS if "arch=" in f)
+
+
+def test_spawned_ranks_import_no_jax():
+    """A rank process of the launcher has neither jax nor the JAX package
+    loaded (its function's module, tests/torch_parallel_ranks.py, imports
+    the port only)."""
+    mods = run_ranks(torch_parallel_ranks.modules_rank, 2, device="cpu", threads=1)
+    assert mods == [[], []]
