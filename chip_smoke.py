@@ -109,7 +109,17 @@ card:
     against the native one, local cuts on the bench graph's CSR on the
     card, and the expander, j-tree and sparsifier (CG on the card) on one
     cluster's neighbourhood, each against the CPU.
-
+  * the front ends (`[front_ends]`, no kernel) over the 100k corpus: the
+    HTTP server with `[index]`'s collection (256 searches, 64 of them
+    filtered, against the collection's own search and the exact top-10),
+    a second collection filled by 10 upserts of 1,000 and then the
+    concurrent storm, scroll, point reads, DELETE and /sql; the MCP
+    server's search, 10 train steps and its four query modes at gnn_depth
+    2; the SQL engine with the corpus loaded by INSERT text and its exact
+    kNN by every operator and under a WHERE, against the exact top-10 and
+    a CPU engine; with FE_FULL_IN_MAIN, or run alone, also MCP's min-cut
+    tool, the SQL HNSW route, GNN worker and fault controls, and the CLI
+    in this process (lifecycle, mincut, `benchmark`).
   * the multichip dry run's sharded paths (`[parallel]`,
     __graft_entry__.py:44-190) as 4 rank processes on the one card (gloo,
     collectives staged through the host; four ranks on one card measure
@@ -135,13 +145,16 @@ package beside this script.
     python3 chip_smoke.py sona training_utils              (those phases alone)
     python3 chip_smoke.py native index graph_store mincut  (those phases alone)
     python3 chip_smoke.py parallel                         (that phase alone)
+    python3 chip_smoke.py front_ends                       (that phase alone)
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import re
@@ -150,8 +163,11 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
+import urllib.error
+import urllib.request
 from unittest import mock
 
 import numpy as np
@@ -456,6 +472,11 @@ from ruvector_tpu_torch.solver import (  # noqa: E402
 from ruvector_tpu_torch.solver import bmssp as sv_bmssp  # noqa: E402
 from ruvector_tpu_torch.solver import push as sv_push  # noqa: E402
 from ruvector_tpu_torch.serve.distributed import make_distributed_search  # noqa: E402
+from ruvector_tpu_torch.serve import sql as sql_mod  # noqa: E402
+from ruvector_tpu_torch.serve.mcp import McpServer  # noqa: E402
+from ruvector_tpu_torch.serve.server import RuvectorServer  # noqa: E402
+from ruvector_tpu_torch.serve.sql import SqlEngine, SqlError  # noqa: E402
+from ruvector_tpu_torch.__main__ import main as cli_main  # noqa: E402
 from ruvector_tpu_torch.serve.rerank import (  # noqa: E402
     rerank_scores,
     retrieve_candidates,
@@ -797,6 +818,27 @@ PAR_C5_KERNELS = ("gated_block_layer", "gated_block_layer_with_sig", "block_gate
                   "mincut_gate_block_from_x", "gated_block_attention_fwd",
                   "gated_block_attention_bwd")
 PAR_HALO_TOL, PAR_TOL, PAR_RING_TOL, PAR_GRAD_TOL = 2e-4, 2e-5, 3e-5, 1e-5
+# the front ends (`[front_ends]`) over the bench corpus at d=128: the HTTP
+# server's searches of the 100k collection (the last ones filtered by
+# cluster), the rows of the collection filled by upserts and of one upsert;
+# the concurrent storm (tests/test_serve_extra.py's at the card's scale:
+# writers x new points one a request, readers x searches each with a
+# /metrics read); MCP's searches, train steps (the tool's default), queries
+# a mode and at the second round, gnn_depth, the min-cut tool's k; SQL's
+# rows an INSERT statement, exact kNN SELECTs by <-> and by each other
+# operator, filtered SELECTs, the queries the CPU engine repeats, the
+# indexed table's rows; the CLI's lifecycle rows; the recall floor
+FE_SEARCHES, FE_FILTERED, FE_UPSERT_ROWS, FE_UPSERT_BATCH = 256, 64, 10_000, 1_000
+FE_STORM_WRITERS, FE_STORM_POINTS, FE_STORM_READERS, FE_STORM_SEARCHES = 4, 250, 8, 64
+FE_MCP_SEARCHES, FE_MCP_STEPS, FE_MCP_QUERIES, FE_MCP_AGAIN = 64, 10, 32, 8
+FE_MCP_DEPTH, FE_MCP_CUT_K = 2, 8
+FE_SQL_BATCH, FE_SQL_L2, FE_SQL_OTHER, FE_SQL_WHERE, FE_SQL_CPU = 5_000, 256, 64, 64, 64
+FE_SQL_INDEX_ROWS, FE_CLI_ROWS, FE_RECALL_MIN = 10_000, 2_000, 0.95
+# the whole phase in the main run; False keeps there only what reaches the
+# card (HTTP search and the storm, MCP train and query, SQL's exact kNN)
+# and leaves the CLI, the SQL HNSW route and worker, the fault controls and
+# MCP's min-cut tool to the phase run alone
+FE_FULL_IN_MAIN = False
 
 
 def say(phase: str, **fields) -> None:
@@ -4826,7 +4868,7 @@ def phase_index(feats_np: np.ndarray, feats: torch.Tensor, labels: np.ndarray, d
         cpu_queries_equal=sum(len(r[0][0]) for r in runs[1:]))
     say("index_done", seconds=round(time.perf_counter() - t_phase, 1),
         kernel_launches=counts["fused_neighbor_mix"])
-    return {"launches": counts["fused_neighbor_mix"], "k3": k3_info}
+    return {"launches": counts["fused_neighbor_mix"], "k3": k3_info, "db": db}
 
 
 _GS_QUERIES = {
@@ -5819,6 +5861,628 @@ def _phase_parallel(feats_np, graph, d, heads, c5, tmp, t_phase) -> dict:
     return {"launches_per_rank": per_rank}
 
 
+# ---------------------------------------------------------------------------
+# the front ends: the HTTP server, MCP, SQL and the CLI
+# ---------------------------------------------------------------------------
+
+def _http(base: str, method: str, path: str, payload=None):
+    """(status, parsed body) of one request to the HTTP server; /metrics
+    comes back as text. A status other than 2xx raises (HTTPError)."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        body = resp.read()
+        return resp.status, body.decode() if path == "/metrics" else json.loads(body)
+
+
+def _profile_summary(prof, n: int = 6) -> dict:
+    """The top ops of a torch.profiler run by host and by device self
+    time (ms), and the device's busy ms: the sum over the device's own
+    events (kernels, copies), which the ops that launch them repeat."""
+    events = prof.key_averages()
+    dev = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3) for e in events]
+    host = [(e.key, e.self_cpu_time_total / 1e3) for e in events]
+    on_device = [getattr(e, "self_device_time_total", 0) / 1e3 for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = lambda rows: json.dumps({k: round(v, 3) for k, v in  # noqa: E731
+                                   sorted(rows, key=lambda r: -r[1])[:n]})
+    return {"device_busy_ms": round(sum(on_device), 3), "device_top_ms": top(dev),
+            "host_top_ms": top(host)}
+
+
+def _host_profile(fn, n: int = 5):
+    """(fn's result, its top host functions by own time, as JSON of s)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    out = prof.runcall(fn)
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return out, json.dumps({f"{os.path.basename(f)}:{line}({name})": round(v[2], 3)
+                            for (f, line, name), v in top})
+
+
+def _fe_queries(feats_np: np.ndarray, count: int, seed: int):
+    """(rows, queries): corpus rows plus IX_NOISE N(0, 1), as `[index]`'s."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(feats_np.shape[0], count, replace=False)
+    noise = IX_NOISE * rng.standard_normal((count, feats_np.shape[1]))
+    return rows, (feats_np[rows] + noise).astype(np.float32)
+
+
+def _fe_payload(i: int, labels: np.ndarray) -> dict:
+    return {"cluster": int(labels[i]), "bucket": i % 10}
+
+
+def _fe_percentiles(ms: list) -> dict:
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "qps": len(ms) / (sum(ms) * 1e-3)}
+
+
+def _fe_storm(base: str, feats_np: np.ndarray, labels: np.ndarray) -> float:
+    """tests/test_serve_extra.py's concurrent load at the card's scale on
+    the `upserts` collection: writers upsert new ids one point a request
+    while readers search and read /metrics. Every request must return 200."""
+    n_read = FE_STORM_READERS * FE_STORM_SEARCHES
+    _, queries = _fe_queries(feats_np, n_read, 51)
+    statuses, errors = [], []
+
+    def writer(w: int):
+        try:
+            for i in range(FE_STORM_POINTS):
+                pid = FE_UPSERT_ROWS + w * FE_STORM_POINTS + i
+                status, _ = _http(base, "PUT", "/collections/upserts/points", {"points": [
+                    {"id": pid, "vector": feats_np[pid].tolist(),
+                     "payload": _fe_payload(pid, labels)}]})
+                statuses.append(status)
+        except Exception as exc:
+            errors.append(repr(exc))
+
+    def reader(r: int):
+        try:
+            for q in queries[r * FE_STORM_SEARCHES:(r + 1) * FE_STORM_SEARCHES]:
+                status, out = _http(base, "POST", "/collections/upserts/points/search",
+                                    {"vector": q.tolist(), "limit": IX_K})
+                statuses.append(status)
+                if len(out["result"]) != IX_K:
+                    raise AssertionError(f"a storm search returned {len(out['result'])} results")
+                status, text = _http(base, "GET", "/metrics")
+                statuses.append(status)
+                if "search_latency_seconds" not in text:
+                    raise AssertionError("/metrics lacks search_latency_seconds")
+        except Exception as exc:
+            errors.append(repr(exc))
+
+    threads = ([threading.Thread(target=writer, args=(w,)) for w in range(FE_STORM_WRITERS)]
+               + [threading.Thread(target=reader, args=(r,)) for r in range(FE_STORM_READERS)])
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    storm_s = time.perf_counter() - t0
+    want = FE_STORM_WRITERS * FE_STORM_POINTS + 2 * n_read
+    if errors or len(statuses) != want or set(statuses) != {200}:
+        raise AssertionError(f"storm: {len(statuses)} of {want} requests answered 200 "
+                             f"({sorted(set(statuses))}), errors {errors[:3]}")
+    return storm_s
+
+
+def _fe_http(db: VectorDB, feats_np: np.ndarray, labels: np.ndarray, flat: FlatIndex):
+    """The HTTP server on 127.0.0.1 with the 100k collection registered and
+    a second filled through PUT; returns that second collection."""
+    n, d = feats_np.shape
+    server = RuvectorServer(port=0, device=DEV).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        server.state.collections["bench"] = db
+        _http(base, "PUT", "/collections/upserts", {"vectors": {"size": d, "distance": "Cosine"}})
+        bodies = [{"points": [{"id": i, "vector": feats_np[i].tolist(),
+                               "payload": _fe_payload(i, labels)}
+                              for i in range(lo, lo + FE_UPSERT_BATCH)]}
+                  for lo in range(0, FE_UPSERT_ROWS, FE_UPSERT_BATCH)]
+        t0 = time.perf_counter()
+        for body in bodies:
+            _http(base, "PUT", "/collections/upserts/points", body)
+        upsert_s = time.perf_counter() - t0
+        del bodies
+
+        # searches of the 100k collection, the last FE_FILTERED filtered by cluster
+        rows, queries = _fe_queries(feats_np, FE_SEARCHES, 21)
+        unfiltered = FE_SEARCHES - FE_FILTERED
+        ids, lat, lat_f = np.full((unfiltered, IX_K), -1, np.int64), [], []
+        for i, q in enumerate(queries):
+            body, flt = {"vector": q.tolist(), "limit": IX_K}, None
+            if i >= unfiltered:
+                flt = body["filter"] = {"must": [{"key": "cluster",
+                                                  "match": {"value": int(labels[rows[i]])}}]}
+            t0 = time.perf_counter()
+            _, out = _http(base, "POST", "/collections/bench/points/search", body)
+            (lat if flt is None else lat_f).append((time.perf_counter() - t0) * 1e3)
+            got = [(r["id"], r["score"]) for r in out["result"]]
+            if got != [(r.id, r.score) for r in db.search(q, k=IX_K, filter=flt)]:
+                raise AssertionError(f"HTTP search {i} differs from db.search")
+            if flt is None:
+                ids[i, :len(got)] = [g[0] for g in got]
+            elif not all(r["payload"]["cluster"] == labels[rows[i]] for r in out["result"]):
+                raise AssertionError("HTTP filtered search: a result outside its cluster")
+        exact, _ = flat.search_batch(queries[:unfiltered], k=IX_K)
+        recall = _recall(ids, exact, IX_K)
+        if recall < FE_RECALL_MIN:
+            raise AssertionError(f"HTTP search recall@10 {recall} under {FE_RECALL_MIN}")
+
+        storm_s = _fe_storm(base, feats_np, labels)
+        updb = server.state.collections["upserts"]
+        points = FE_UPSERT_ROWS + FE_STORM_WRITERS * FE_STORM_POINTS
+        _, info = _http(base, "GET", "/collections/upserts")
+        if info["result"]["points_count"] != points or updb.neighbor_graph().num_nodes != points:
+            raise AssertionError(f"after the storm: {info['result']['points_count']} points, "
+                                 f"{points} written")
+
+        # scroll one cluster to the end, 7 points a page
+        c0 = int(labels[0])
+        want = [vid for i, vid in enumerate(updb._ids)
+                if (updb._payloads.get(i) or {}).get("cluster") == c0]
+        flt, seen, offset, pages = {"must": [{"key": "cluster", "match": {"value": c0}}]}, [], None, 0
+        while True:
+            body = {"limit": 7, "filter": flt, **({} if offset is None else {"offset": offset})}
+            _, out = _http(base, "POST", "/collections/upserts/points/scroll", body)
+            seen += [p["id"] for p in out["result"]["points"]]
+            pages += 1
+            offset = out["result"]["next_page_offset"]
+            if offset is None:
+                break
+        if seen != want:
+            raise AssertionError(f"scroll returned {len(seen)} ids, {len(set(seen))} distinct; "
+                                 f"cluster {c0} holds {len(want)}")
+
+        _, point = _http(base, "GET", "/collections/upserts/points/5")
+        if point["result"]["vector"] != feats_np[5].tolist() \
+                or point["result"]["payload"] != _fe_payload(5, labels):
+            raise AssertionError("GET point 5 answers another vector or payload")
+        health = _http(base, "GET", "/health")[1]
+        ready = _http(base, "GET", "/ready")[1]
+        _http(base, "POST", "/sql", {"sql": "CREATE TABLE t (id int, v ruvector(2)); INSERT INTO t "
+                                            "VALUES (1, '[1,0]'), (2, '[0,1]')"})
+        sql = _http(base, "POST", "/sql", {"sql": "SELECT id FROM t ORDER BY v <-> '[0,1]' LIMIT 1"})
+        if sql[1]["result"] != [{"id": 2}] or server.state.sql.device != DEV:
+            raise AssertionError(f"/sql answered {sql}")
+        _http(base, "DELETE", "/collections/upserts")
+        try:
+            _http(base, "GET", "/collections/upserts")
+            raise AssertionError("a deleted collection still answers")
+        except urllib.error.HTTPError as err:
+            if err.code != 404:
+                raise
+    finally:
+        server.stop()
+    say("front_ends_http", collection_rows=n, d=d, upsert_rows=FE_UPSERT_ROWS,
+        upsert_requests=FE_UPSERT_ROWS // FE_UPSERT_BATCH, upsert_s=upsert_s,
+        upsert_points_per_s=FE_UPSERT_ROWS / upsert_s, searches=unfiltered, k=IX_K,
+        **_fe_percentiles(lat), filtered_searches=FE_FILTERED,
+        filtered_p50_ms=float(np.percentile(lat_f, 50)), recall_at_10=recall,
+        recall_min=FE_RECALL_MIN, equal_to_db_search=True,
+        storm_writers=FE_STORM_WRITERS, storm_points=FE_STORM_POINTS,
+        storm_readers=FE_STORM_READERS, storm_searches=FE_STORM_SEARCHES, storm_s=storm_s,
+        points_after_storm=points, scroll_cluster=c0, scroll_ids=len(seen), scroll_pages=pages,
+        health=health.get("status"), ready=ready.get("status"))
+    return updb
+
+
+def _fe_mcp(db: VectorDB, updb: VectorDB, feats_np: np.ndarray, full: bool) -> None:
+    """The MCP server over the 100k collection: search, train, the four
+    query modes twice (the second round from the engine cache), and on the
+    10k collection the min-cut tool; one sql call."""
+    mcp = McpServer(device=DEV)
+
+    def rpc(method: str, params=None):
+        return mcp.handle({"jsonrpc": "2.0", "id": 1, "method": method, "params": params or {}})
+
+    def call(tool: str, args: dict):
+        res = rpc("tools/call", {"name": tool, "arguments": args})["result"]
+        if res.get("isError"):
+            raise AssertionError(f"MCP {tool}: {res['content'][0]['text']}")
+        return json.loads(res["content"][0]["text"])
+
+    init = rpc("initialize")["result"]
+    tools = {t["name"] for t in rpc("tools/list")["result"]["tools"]}
+    lines = [json.dumps({"jsonrpc": "2.0", "id": 1, "method": "initialize"}),
+             json.dumps({"jsonrpc": "2.0", "method": "notifications/initialized"}),
+             json.dumps({"jsonrpc": "2.0", "id": 2, "method": "tools/list"}),
+             json.dumps({"jsonrpc": "2.0", "id": 3, "method": "ping"})]
+    out = io.StringIO()
+    mcp.serve_stdio(stdin=iter(lines), stdout=out)
+    replies = [json.loads(line) for line in out.getvalue().splitlines()]
+    if init["serverInfo"]["name"] != "ruvector-tpu" or not {"search", "query", "train", "sql",
+                                                            "graph_mincut"} <= tools \
+            or [r["id"] for r in replies] != [1, 2, 3]:
+        raise AssertionError(f"MCP handshake: {init}, {sorted(tools)}, {replies}")
+    mcp.collections["bench"] = db
+    mcp.collections["upserts"] = updb
+
+    _, queries = _fe_queries(feats_np, FE_MCP_SEARCHES, 31)
+    search_ms = []
+    for q in queries:
+        t0 = time.perf_counter()
+        res = call("search", {"collection": "bench", "vector": q.tolist(), "k": IX_K})
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+        if [(r["id"], r["score"]) for r in res["results"]] != \
+                [(r.id, r.score) for r in db.search(q, k=IX_K)]:
+            raise AssertionError("MCP search differs from db.search")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = call("train", {"collection": "bench", "steps": FE_MCP_STEPS})
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if tr["steps"] != FE_MCP_STEPS or not np.isfinite([tr["loss_first"], tr["loss_last"]]).all():
+        raise AssertionError(f"MCP train: {tr}")
+    if full:
+        # where a train call's time goes: two more steps under the profiler
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            _, profiled_ms = _synced_ms(lambda: call("train", {"collection": "bench",
+                                                               "steps": 2}))
+        say("front_ends_mcp_train_profile", steps=2, wall_ms=profiled_ms,
+            **_profile_summary(prof))
+
+    # the four modes, then a second, shorter round: every query after the
+    # first finds its engine (and its GNN embeddings) in the cache
+    modes = ("vector_search", "neural_search", "subgraph_extraction", "differentiable_search")
+    _, qq = _fe_queries(feats_np, FE_MCP_QUERIES, 41)
+    query_ms, hits, first_ms, answers, subgraph = {m: [] for m in modes}, [], None, [], []
+    for rnd, count in enumerate((FE_MCP_QUERIES, FE_MCP_AGAIN)):
+        for mode in modes:
+            for q in qq[:count]:
+                t0 = time.perf_counter()
+                r = call("query", {"collection": "bench", "vector": q.tolist(), "mode": mode,
+                                   "k": IX_K, "gnn_depth": FE_MCP_DEPTH})
+                ms = (time.perf_counter() - t0) * 1e3
+                if first_ms is None:
+                    first_ms = ms
+                elif rnd == 0:
+                    query_ms[mode].append(ms)
+                if rnd == 0 and mode == "vector_search":
+                    answers.append(r)
+                if rnd == 0 and mode == "subgraph_extraction":
+                    subgraph.append((len(r["subgraph"]["nodes"]), len(r["subgraph"]["edges"])))
+                if len(r["nodes"]) != IX_K or not np.isfinite(r["scores"]).all():
+                    raise AssertionError(f"MCP query {mode}: {r}")
+        hits.append(call("info", {})["gnn_cache"]["hits"])
+    if hits[1] - hits[0] != len(modes) * FE_MCP_AGAIN or hits[0] < 1:
+        raise AssertionError(f"MCP engine cache hits {hits}")
+    params, cfgs = mcp.trained["bench"]
+    engine = QueryEngine(db.features_matrix(), db.neighbor_graph(), params, cfgs)
+    want = [engine.execute(RuvectorQuery(vector=q, mode=QueryMode.VECTOR_SEARCH, k=IX_K,
+                                         gnn_depth=FE_MCP_DEPTH)) for q in qq]
+    same_topk("MCP vector_search vs a direct QueryEngine", [w.nodes for w in want],
+              [w.scores for w in want], [a["nodes"] for a in answers],
+              [a["scores"] for a in answers], 1e-6, min_equal=1.0)
+    mincut = {}
+    if full:
+        t0 = time.perf_counter()
+        mc, top = _host_profile(lambda: call("graph_mincut", {"collection": "upserts",
+                                                              "k": FE_MCP_CUT_K}))
+        mincut = {"mincut_s": time.perf_counter() - t0, "mincut_host_top": top,
+                  "mincut_value": mc["value"],
+                  "mincut_sides": [mc["side_a"], mc["side_b"]]}
+        if mc["side_a"] + mc["side_b"] != len(updb) or not np.isfinite(mc["value"]):
+            raise AssertionError(f"MCP graph_mincut: {mc}")
+    sql = call("sql", {"sql": "CREATE TABLE m (id int, v ruvector(2)); INSERT INTO m VALUES "
+                              "(1, '[1,0]'), (2, '[0,1]'); SELECT id FROM m ORDER BY v <-> "
+                              "'[0,1]' LIMIT 1"})
+    if sql["result"] != [{"id": 2}]:
+        raise AssertionError(f"MCP sql: {sql}")
+    say("front_ends_mcp", collection_rows=len(db), searches=FE_MCP_SEARCHES,
+        search_p50_ms=float(np.percentile(search_ms, 50)), train_steps=FE_MCP_STEPS,
+        train_s=train_s, train_ms_per_step=train_s * 1e3 / FE_MCP_STEPS,
+        loss_first=tr["loss_first"], loss_last=tr["loss_last"], queries_per_mode=FE_MCP_QUERIES,
+        gnn_depth=FE_MCP_DEPTH, first_query_ms=first_ms,
+        query_ms=json.dumps({m: float(np.median(v)) for m, v in query_ms.items()}),
+        subgraph_nodes_edges_median=np.median(subgraph, axis=0).tolist(),
+        cache_hits=hits, vector_search_equals_engine=True,
+        **{**mincut, **({"mincut_rows": len(updb), "mincut_k": FE_MCP_CUT_K} if full else {})})
+
+
+def _vec_text(v: np.ndarray) -> str:
+    """A vector literal; each float32 is written as its double's repr, which
+    reads back to the same float32."""
+    return str(v.tolist())
+
+
+def _sql_insert_texts(feats_np: np.ndarray, labels: np.ndarray, table: str, n: int) -> list:
+    return ["INSERT INTO " + table + " (cluster, embedding) VALUES " + ", ".join(
+        f"({int(labels[i])}, '{_vec_text(feats_np[i])}')" for i in range(lo, min(n, lo + FE_SQL_BATCH)))
+        for lo in range(0, n, FE_SQL_BATCH)]
+
+
+def _sql_distances(rows: np.ndarray, qs: np.ndarray, op: str) -> np.ndarray:
+    """pgvector's distances of rows [Q, k, D] to queries [Q, D], in float64."""
+    x, q = rows.astype(np.float64), qs.astype(np.float64)[:, None, :]
+    dots = np.sum(x * q, axis=2)
+    if op == "<#>":
+        return -dots
+    if op == "<=>":
+        return 1.0 - dots / (np.linalg.norm(x, axis=2) * np.linalg.norm(q, axis=2))
+    return np.linalg.norm(x - q, axis=2)
+
+
+def _sql_knn(eng: SqlEngine, table: str, op: str, q: np.ndarray, where: str = ""):
+    """(row ids, SQL distances, ms) of one exact top-k SELECT (ids are
+    serial: row + 1)."""
+    qt = _vec_text(q)
+    t0 = time.perf_counter()
+    out = eng.execute(f"SELECT id, embedding {op} '{qt}' AS d FROM {table}{where} "
+                      f"ORDER BY embedding {op} '{qt}' LIMIT {IX_K}")
+    ms = (time.perf_counter() - t0) * 1e3
+    return [r["id"] - 1 for r in out], [r["d"] for r in out], ms
+
+
+def _fe_sql_controls(eng: SqlEngine, feats_np: np.ndarray, d: int) -> None:
+    """One control for each of the reference's five SQL faults that the
+    port repairs; each must behave as repaired."""
+    rows = ", ".join(f"('t{i % 2}', '{_vec_text(feats_np[i])}')" for i in range(32))
+    eng.execute(f"CREATE TABLE ctl (id serial, n int, tag text, embedding ruvector({d})); "
+                f"INSERT INTO ctl (tag, embedding) VALUES {rows}; "
+                f"INSERT INTO ctl (tag, embedding) VALUES (NULL, '{_vec_text(feats_np[0])}')")
+    got = {}
+    try:
+        eng.execute("CREATE INDEX ci ON ctl USING hnsw (embedding vector_ip_ops)")
+        got["ip_ops"] = "built"
+    except SqlError as exc:
+        got["ip_ops"] = "refused" if "inner-product" in str(exc) else str(exc)
+    eng.execute("CREATE INDEX cl ON ctl USING hnsw (embedding ruvector_l2_ops)")
+    q = _vec_text(feats_np[3])
+    plan = eng.execute(f"EXPLAIN SELECT id FROM ctl ORDER BY embedding <-> '{q}' LIMIT 3")
+    got["ruvector_ops"] = any(s["plan"].startswith("hnsw index scan") for s in plan)
+    got["null_eq"] = eng.execute("SELECT id FROM ctl WHERE tag = NULL")
+    got["null_ne"] = eng.execute("SELECT count(*) FROM ctl WHERE tag <> 't0'")
+    got["vector_eq"] = eng.execute(f"SELECT id FROM ctl WHERE embedding = '{q}'")
+    got["serial"] = eng.execute("SELECT id, n FROM ctl WHERE id = 33")
+    q0 = _vec_text(feats_np[0])
+    got["ties"] = eng.execute(f"SELECT id FROM ctl ORDER BY embedding <-> '{q0}', id DESC LIMIT 2")
+    want = {"ip_ops": "refused", "ruvector_ops": True, "null_eq": [], "null_ne": [{"count": 16}], "vector_eq": [{"id": 4}],
+            "serial": [{"id": 33, "n": None}], "ties": [{"id": 33}, {"id": 1}]}
+    say("front_ends_sql_controls", **{k: json.dumps(v) for k, v in got.items()},
+        ok=got == want)
+    if got != want:
+        raise AssertionError(f"SQL fault controls: {got} != {want}")
+
+
+def _fe_sql(feats_np: np.ndarray, labels: np.ndarray, flat: FlatIndex, flat_l2: FlatIndex,
+            full: bool) -> None:
+    """The SQL engine on the card: the 100k corpus loaded by INSERT text,
+    exact kNN by each operator and under a WHERE, the card's distances
+    against a CPU engine's, count/UPDATE/DELETE; with `full`, an HNSW
+    index on a 10k table against the exact route, the GNN worker and the
+    fault controls."""
+    n, d = feats_np.shape
+    eng = SqlEngine(device=DEV)
+    eng.execute(f"CREATE TABLE items (id serial, cluster int, embedding ruvector({d}))")
+    t0 = time.perf_counter()
+    texts = _sql_insert_texts(feats_np, labels, "items", n)
+    text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, insert_top = _host_profile(lambda: eng.execute(texts[0]))
+    for sql in texts[1:]:
+        eng.execute(sql)
+    insert_s = time.perf_counter() - t0
+    del texts
+    table = eng.tables["items"]
+    if len(table) != n or not np.array_equal(table.vecs["embedding"], feats_np) \
+            or table.data["id"][-1] != n:
+        raise AssertionError("SQL load: the table differs from the corpus")
+
+    feats = torch.from_numpy(feats_np).to(DEV)
+    knn_ms, share_equal = {}, {}
+    for op, count, seed in (("<->", FE_SQL_L2, 61), ("<=>", FE_SQL_OTHER, 62),
+                            ("<#>", FE_SQL_OTHER, 63)):
+        _, qs = _fe_queries(feats_np, count, seed)
+        if op == "<->":
+            # where an exact query's host time goes
+            _, knn_top = _host_profile(lambda: _sql_knn(eng, "items", op, qs[0]))
+        ids, dist, ms = zip(*(_sql_knn(eng, "items", op, q) for q in qs))
+        knn_ms[op] = float(np.median(ms))
+        # the exact top-10's ids: the flat index's (l2, cosine) or one
+        # product on the card (inner product); their distances in float64
+        # on the host, the tie limit 1e-5 of the largest
+        if op == "<#>":
+            t_ids = torch.topk(torch.from_numpy(qs).to(DEV) @ feats.T, IX_K,
+                               dim=1).indices.cpu().numpy()
+        else:
+            t_ids, _ = (flat_l2 if op == "<->" else flat).search_batch(qs, k=IX_K)
+        t_d = _sql_distances(feats_np[t_ids], qs, op)
+        share_equal[op] = same_topk(f"SQL exact {op} vs the exact top-10", t_ids, t_d, ids, dist,
+                                    1e-5 * max(1.0, float(np.abs(t_d).max())))
+
+    # WHERE cluster = c: the exact top-10 of the cluster
+    rows, qs = _fe_queries(feats_np, FE_SQL_WHERE, 64)
+    where_ms, got, want = [], ([], []), ([], [])
+    for r, q in zip(rows, qs):
+        c = int(labels[r])
+        ids, dist, ms = _sql_knn(eng, "items", "<->", q, f" WHERE cluster = {c}")
+        where_ms.append(ms)
+        members = np.nonzero(labels == c)[0]
+        dm = torch.linalg.vector_norm(feats[members] - torch.from_numpy(q).to(DEV), dim=1)
+        top = torch.topk(-dm, IX_K)
+        got[0].append(ids)
+        got[1].append(dist)
+        want[0].append(members[top.indices.cpu().numpy()])
+    want[1].extend(_sql_distances(feats_np[np.asarray(want[0])], qs, "<->"))
+    same_topk("SQL WHERE cluster = c vs the cluster's exact top-10", *want, *got,
+              1e-5 * max(1.0, float(np.abs(want[1]).max())))
+
+    # the card's distance pass against a CPU engine's on the same table
+    # (the limit is relative to the column's largest distance: a near
+    # neighbour's <-> comes from |m|^2 - 2 m.q + |q|^2, terms ~100 times
+    # its square, so its float32 error is ~1e-7 of |m|^2, not of itself)
+    cpu_eng = SqlEngine(device="cpu")
+    cpu_eng.tables["items"] = table
+    cpu_rel, cpu_equal = 0.0, {}
+    _, qs = _fe_queries(feats_np, FE_SQL_CPU, 66)
+    ops = ["<->"] * (FE_SQL_CPU // 2) + ["<=>", "<#>"] * (FE_SQL_CPU // 4)
+    for op in ("<->", "<=>", "<#>"):
+        got, want = ([], []), ([], [])
+        for q in qs[[i for i, o in enumerate(ops) if o == op]]:
+            card = sql_mod._distance_column(table.vecs["embedding"], q, op, DEV)
+            host = sql_mod._distance_column(table.vecs["embedding"], q, op, torch.device("cpu"))
+            cpu_rel = max(cpu_rel, float(np.abs(card - host).max() / np.abs(host).max()))
+            for out, e in ((got, eng), (want, cpu_eng)):
+                ids, dist, _ = _sql_knn(e, "items", op, q)
+                out[0].append(ids)
+                out[1].append(dist)
+        cpu_equal[op] = same_topk(f"SQL {op}: card vs CPU engine", *want, *got, 1e-5)
+    if cpu_rel > 1e-5:
+        raise AssertionError(f"SQL distances: card vs CPU {cpu_rel} of the largest, over 1e-5")
+
+    # count, UPDATE and DELETE on a few rows
+    t0 = time.perf_counter()
+    changed = [eng.execute(f"UPDATE items SET cluster = -1 WHERE id = {rid}")
+               for rid in (11, 22, 33)]
+    update_ms = (time.perf_counter() - t0) * 1e3 / 3
+    t0 = time.perf_counter()
+    deleted = eng.execute("DELETE FROM items WHERE cluster = -1")
+    delete_ms = (time.perf_counter() - t0) * 1e3
+    counts = [eng.execute("SELECT count(*) FROM items")[0]["count"]]
+    gone, _, _ = _sql_knn(eng, "items", "<->", feats_np[10])    # row 10 was id 11
+    kept, _, _ = _sql_knn(eng, "items", "<->", feats_np[12])
+    if changed != [1, 1, 1] or deleted != 3 or counts != [n - 3] or 10 in gone or kept[0] != 12:
+        raise AssertionError(f"SQL UPDATE/DELETE: {changed}, {deleted}, {counts}, {gone}, {kept}")
+
+    extra = {}
+    if full:
+        m = FE_SQL_INDEX_ROWS
+        eng.execute(f"CREATE TABLE small (id serial, cluster int, embedding ruvector({d}))")
+        for sql in _sql_insert_texts(feats_np, labels, "small", m):
+            eng.execute(sql)
+        _, qs = _fe_queries(feats_np[:m], FE_SQL_OTHER, 65)
+        probe = f"SELECT id FROM small ORDER BY embedding <-> '{_vec_text(qs[0])}' LIMIT {IX_K}"
+        plans = [eng.execute("EXPLAIN " + probe)[1]["plan"]]
+        t0 = time.perf_counter()
+        eng.execute("CREATE INDEX small_hnsw ON small USING hnsw (embedding vector_l2_ops)")
+        index_s = time.perf_counter() - t0
+        plans.append(eng.execute("EXPLAIN " + probe)[1]["plan"])
+        if not (plans[0].startswith("batched device") and plans[1].startswith("hnsw index")):
+            raise AssertionError(f"SQL plans before and after CREATE INDEX: {plans}")
+        small = eng.tables["small"].vecs["embedding"]
+        h_ids, h_ms, exact = [], [], []
+        for q in qs:
+            ids, _, ms = _sql_knn(eng, "small", "<->", q)
+            h_ids.append(ids)
+            h_ms.append(ms)
+            dist = sql_mod._distance_column(small, q, "<->", DEV)
+            exact.append(np.argsort(dist, kind="stable")[:IX_K])
+        hnsw_recall = _recall(np.asarray(h_ids), np.asarray(exact), IX_K)
+        if hnsw_recall < FE_RECALL_MIN:
+            raise AssertionError(f"SQL HNSW route recall@10 {hnsw_recall} under {FE_RECALL_MIN}")
+        t0 = time.perf_counter()
+        job = eng.execute("SELECT ruvector_gnn_train('small', 1) AS job")[0]["job"]
+        status = json.loads(eng.execute(f"SELECT ruvector_gnn_wait({job}, 900.0) AS s")[0]["s"])
+        gnn_s = time.perf_counter() - t0
+        model = json.loads(eng.execute("SELECT ruvector_gnn_model('small') AS m")[0]["m"])
+        if status["status"] != "done" or not np.isfinite(status["loss"]) \
+                or model["rows"] != m or model["param_count"] < 1:
+            raise AssertionError(f"SQL GNN worker: {status}, {model}")
+        _fe_sql_controls(eng, feats_np, d)
+        knn_ms["hnsw <->"] = float(np.median(h_ms))
+        extra = {"index_rows": m, "index_build_s": index_s, "hnsw_queries": len(qs),
+                 "hnsw_recall_at_10": hnsw_recall, "gnn_train_s": gnn_s,
+                 "gnn_loss": status["loss"], "gnn_param_count": model["param_count"]}
+    eng.close()
+    say("front_ends_sql", rows=n, d=d, statement_rows=FE_SQL_BATCH, text_s=text_s,
+        insert_s=insert_s, insert_rows_per_s=n / insert_s, first_insert_host_top=insert_top,
+        knn_ms=json.dumps(knn_ms), knn_host_top=knn_top, knn_queries=json.dumps({"<->": FE_SQL_L2, "<=>": FE_SQL_OTHER,
+                                                           "<#>": FE_SQL_OTHER}),
+        ids_equal_share=json.dumps(share_equal), where_queries=FE_SQL_WHERE,
+        where_ms=float(np.median(where_ms)), cpu_queries=FE_SQL_CPU,
+        cpu_max_err_of_scale=cpu_rel,
+        cpu_ids_equal_share=json.dumps(cpu_equal),
+        update_ms=update_ms, delete_ms=delete_ms, **extra)
+
+
+def _fe_cli(feats_np: np.ndarray) -> None:
+    """The CLI in this process on the card (its default device): the
+    lifecycle on FE_CLI_ROWS rows, mincut on tests/test_cli.py's edge
+    file, and `benchmark` at its defaults."""
+    d = feats_np.shape[1]
+
+    def run(*argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_main(list(argv))
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vecs = feats_np[:FE_CLI_ROWS]
+        np.save(f"{tmp}/v.npy", vecs)
+        col = f"{tmp}/col"
+        t0 = time.perf_counter()
+        run("create", col, "--dim", str(d))
+        inserted = run("insert", col, "--vectors", f"{tmp}/v.npy")
+        info = json.loads(run("info", col))
+        found = json.loads(run("search", col, "--query", json.dumps(vecs[5].tolist()),
+                               "-k", "3").splitlines()[-1])
+        run("export", col, f"{tmp}/e.npz")
+        run("import", f"{tmp}/e.npz", f"{tmp}/col2")
+        info2 = json.loads(run("info", f"{tmp}/col2"))
+        run("graph-build", col, f"{tmp}/g.npz", "--k", "8")
+        lifecycle_s = time.perf_counter() - t0
+        g = np.load(f"{tmp}/g.npz")
+        edges = f"{tmp}/edges.tsv"
+        with open(edges, "w") as f:
+            f.write("0 1 3\n1 2 3\n0 2 3\n3 4 3\n4 5 3\n3 5 3\n2 3 0.4\n")
+        cut = json.loads(run("mincut", edges, "--json"))
+        cut_st = json.loads(run("mincut", edges, "--source", "0", "--sink", "5", "--json"))
+        t0 = time.perf_counter()
+        bench = json.loads(run("benchmark").splitlines()[-1])
+        bench_s = time.perf_counter() - t0
+    ok = (f"inserted {FE_CLI_ROWS}" in inserted and info["points_count"] == FE_CLI_ROWS
+          and info2["points_count"] == FE_CLI_ROWS and found["results"][0]["id"] == 5
+          and found["results"][0]["score"] > 0.99 and g["nbr_idx"].shape == (FE_CLI_ROWS, 8)
+          and abs(cut["value"] - 0.4) < 1e-6 and cut["cut_edges"] == [[2, 3]]
+          and cut_st["mode"] == "s-t" and abs(cut_st["value"] - 0.4) < 1e-6)
+    if not ok:
+        raise AssertionError(f"CLI: {inserted!r}, {info}, {info2}, {found}, {cut}, {cut_st}")
+    say("front_ends_cli", rows=FE_CLI_ROWS, lifecycle_s=lifecycle_s,
+        self_match_score=found["results"][0]["score"], benchmark_rows=10_000,
+        benchmark_queries=100, benchmark_s=bench_s, insert_per_s=bench["insert_per_s"],
+        search_qps=bench["search_qps"], search_p50_ms=bench["search_p50_ms"])
+
+
+def phase_front_ends(feats_np: np.ndarray, labels: np.ndarray, d: int, db: VectorDB,
+                     full: bool = True) -> None:
+    """The front ends on the card over the 100k corpus (`[front_ends]`):
+    the HTTP server with `[index]`'s 100k collection and one filled by
+    upserts, its searches, the concurrent storm, scroll, point GET,
+    DELETE and /sql; the MCP server's search, train and four query modes;
+    the SQL engine with the corpus loaded by INSERT text and its exact kNN
+    by every operator; with `full` (the phase run alone), also MCP's
+    min-cut tool, the SQL HNSW route, GNN worker and fault controls, and
+    the CLI. The front ends launch none of the 13 kernels (their layers
+    keep use_pallas=False, as in the JAX package): the phase checks it."""
+    t_phase = time.perf_counter()
+    flat = FlatIndex(dim=d, metric="cosine", device=DEV)
+    flat.add_batch(feats_np)
+    flat_l2 = FlatIndex(dim=d, metric="l2", device=DEV)
+    flat_l2.add_batch(feats_np)
+
+    def run():
+        updb = _fe_http(db, feats_np, labels, flat)
+        _fe_mcp(db, updb, feats_np, full)
+        _fe_sql(feats_np, labels, flat, flat_l2, full)
+        if full:
+            _fe_cli(feats_np)
+
+    _, counts = counted([], run)
+    launched = {k: v for k, v in counts.items() if v}
+    if launched:
+        raise AssertionError(f"the front ends launched kernels: {launched}")
+    say("front_ends_done", seconds=round(time.perf_counter() - t_phase, 1), full=full,
+        kernel_launches=0)
+
+
 def config5_config(d: int, heads: int) -> gated.GatedGraphTransformerConfig:
     """Config 5: dim 128, 4 heads, FFN x4, 2 layers, lam 0.5, eps 0.01,
     hysteresis band 0.05, budget nB/16, bf16 compute on f32 features."""
@@ -5936,6 +6600,7 @@ def main() -> int:
     launches["fused_neighbor_mix"] += ix["launches"]
     launches["fused_neighbor_mix"] += phase_graph_store(feats_np, feats, labels, graph, d, heads)
     phase_mincut(graph, labels)
+    phase_front_ends(feats_np, labels, d, ix.pop("db"), full=FE_FULL_IN_MAIN)
     peak_before = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     phase_transformer()
@@ -6043,7 +6708,7 @@ def main() -> int:
 # `training_utils` builds K1's source (its profiled layer), `index` and
 # `graph_store` K3's, `parallel` config 5's four
 PHASES_ALONE = ("solver", "graph_transformer_rest", "sona", "training_utils", "native",
-                "index", "graph_store", "mincut", "parallel")
+                "index", "graph_store", "mincut", "parallel", "front_ends")
 
 
 def phases_alone(names: list[str]) -> int:
@@ -6074,6 +6739,12 @@ def phases_alone(names: list[str]) -> int:
         phase_graph_store(feats_np, feats, labels, graph, d, heads)
     if "mincut" in names:
         phase_mincut(graph, labels)
+    if "front_ends" in names:
+        _native_runtime()    # built before MCP's min-cut tool is timed
+        # `[index]`'s database: the HNSW defaults, the serial insert, payloads
+        db = VectorDB(DbOptions(dimensions=d), device=DEV)
+        db.insert_batch(feats_np, payloads=[_fe_payload(i, labels) for i in range(len(labels))])
+        phase_front_ends(feats_np, labels, d, db)
     if "parallel" in names:
         say("build_sources", **{k: round(v, 1) for k, v in _lib.build(PAR_SOURCES).items()})
         _native_runtime()

@@ -7,6 +7,8 @@ corpus that fits on the card is exact and needs no index maintenance.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -24,6 +26,9 @@ class FlatIndex:
         self.device = resolve_device(device)
         self._rows: list[np.ndarray] = []
         self._matrix: torch.Tensor | None = None       # device copy of the rows
+        # an insert on one thread and a search on another (the HTTP server)
+        # must not leave a copy of fewer rows in place
+        self._lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self._rows)
@@ -32,15 +37,17 @@ class FlatIndex:
         v = np.atleast_2d(np.asarray(vectors, np.float32))
         if v.shape[1] != self.dim:
             raise ValueError(f"vectors have width {v.shape[1]}, the index {self.dim}")
-        self._rows.extend(v)
-        self._matrix = None                            # stale: rebuilt on next search
+        with self._lock:
+            self._rows.extend(v)
+            self._matrix = None                        # stale: rebuilt on next search
 
     add = add_batch
 
     def _mat(self) -> torch.Tensor:
-        if self._matrix is None:
-            self._matrix = torch.from_numpy(np.stack(self._rows)).to(self.device)
-        return self._matrix
+        with self._lock:
+            if self._matrix is None:
+                self._matrix = torch.from_numpy(np.stack(self._rows)).to(self.device)
+            return self._matrix
 
     def search_batch(self, queries: np.ndarray, k: int = 10, ef: int | None = None,
                      num_threads: int = 0):

@@ -7,12 +7,21 @@ The library is the port's copy of `native/hnsw.cpp`, built by the native
 runtime's loader (same flags, keyed on source, flags and CPU). Exports
 level-0 adjacency straight into a NeighborGraph for GNN consumption, the
 bridge between the serving index and the device compute path.
+
+The native insert may move the index's storage (its vectors and link
+lists grow by reallocation) while a search on another thread reads it, and
+the call releases the GIL: a search that ran during an insert read freed
+memory and crashed the process, in the JAX package too. So the wrapper
+holds a readers-writer lock: searches and exports share it, inserts take it
+alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -54,6 +63,45 @@ def _load():
     return lib
 
 
+class _ReadWriteLock:
+    """Many readers or one writer; a waiting writer holds off new readers."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+        self._writers_waiting = 0
+
+    @contextlib.contextmanager
+    def read(self):
+        with self._cond:
+            while self._writer or self._writers_waiting:
+                self._cond.wait()
+            self._readers += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                if not self._readers:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def write(self):
+        with self._cond:
+            self._writers_waiting += 1
+            while self._writer or self._readers:
+                self._cond.wait()
+            self._writers_waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()
+
+
 @dataclasses.dataclass(frozen=True)
 class HnswConfig:
     """Defaults per ruvector-core/src/types.rs:86-97."""
@@ -77,6 +125,7 @@ class HnswIndex:
         self._h = lib.hnsw_new(config.dim, config.m, config.ef_construction,
                                1 if config.metric == "cosine" else 0, config.seed)
         self._lib = lib
+        self._rw = _ReadWriteLock()
 
     def __del__(self):
         if getattr(self, "_h", None):
@@ -84,7 +133,8 @@ class HnswIndex:
             self._h = None
 
     def __len__(self) -> int:
-        return int(self._lib.hnsw_size(self._h))
+        with self._rw.read():
+            return int(self._lib.hnsw_size(self._h))
 
     def add(self, vector: np.ndarray):
         self.add_batch(np.asarray(vector, np.float32)[None, :])
@@ -96,10 +146,11 @@ class HnswIndex:
         v = np.ascontiguousarray(vectors, np.float32)
         if v.ndim != 2 or v.shape[1] != self.config.dim:
             raise ValueError(f"vectors have shape {v.shape}, the index width {self.config.dim}")
-        if num_threads > 1:
-            self._lib.hnsw_add_batch_parallel(self._h, v, v.shape[0], num_threads)
-        else:
-            self._lib.hnsw_add_batch(self._h, v, v.shape[0])
+        with self._rw.write():
+            if num_threads > 1:
+                self._lib.hnsw_add_batch_parallel(self._h, v, v.shape[0], num_threads)
+            else:
+                self._lib.hnsw_add_batch(self._h, v, v.shape[0])
 
     def search(self, query: np.ndarray, k: int = 10,
                ef: int | None = None) -> tuple[np.ndarray, np.ndarray]:
@@ -115,10 +166,12 @@ class HnswIndex:
         ef = ef or self.config.ef_search
         ids = np.zeros((nq, k), np.int32)
         dists = np.zeros((nq, k), np.float32)
-        if num_threads > 1:
-            self._lib.hnsw_search_batch_parallel(self._h, q, nq, k, ef, num_threads, ids, dists)
-        else:
-            self._lib.hnsw_search_batch(self._h, q, nq, k, ef, ids, dists)
+        with self._rw.read():
+            if num_threads > 1:
+                self._lib.hnsw_search_batch_parallel(self._h, q, nq, k, ef, num_threads, ids,
+                                                     dists)
+            else:
+                self._lib.hnsw_search_batch(self._h, q, nq, k, ef, ids, dists)
         return ids, dists
 
     def save(self, path, vectors: np.ndarray):
@@ -148,14 +201,15 @@ class HnswIndex:
     def level_nodes(self) -> list[np.ndarray]:
         """Node ids per HNSW level, top level first: the layer structure
         consumed by serve.search.hierarchical_forward (search.rs:105-162)."""
-        levels = int(self._lib.hnsw_level_count(self._h))
         out = []
-        for lvl in range(levels - 1, -1, -1):
-            n = int(self._lib.hnsw_level_size(self._h, lvl))
-            ids = np.zeros(n, np.int32)
-            if n:
-                self._lib.hnsw_level_nodes(self._h, lvl, ids)
-            out.append(ids)
+        with self._rw.read():
+            levels = int(self._lib.hnsw_level_count(self._h))
+            for lvl in range(levels - 1, -1, -1):
+                n = int(self._lib.hnsw_level_size(self._h, lvl))
+                ids = np.zeros(n, np.int32)
+                if n:
+                    self._lib.hnsw_level_nodes(self._h, lvl, ids)
+                out.append(ids)
         return out
 
     def to_neighbor_graph(self):
@@ -163,11 +217,12 @@ class HnswIndex:
         index's device; the edge weight is the mask, as in the JAX package."""
         from ruvector_tpu_torch.graph.neighbors import NeighborGraph
 
-        n = len(self)
-        max_deg = int(self._lib.hnsw_max_degree(self._h))
-        idx = np.zeros((n, max_deg), np.int32)
-        mask = np.zeros((n, max_deg), np.float32)
-        self._lib.hnsw_adjacency(self._h, max_deg, idx, mask)
+        with self._rw.read():
+            n = int(self._lib.hnsw_size(self._h))
+            max_deg = int(self._lib.hnsw_max_degree(self._h))
+            idx = np.zeros((n, max_deg), np.int32)
+            mask = np.zeros((n, max_deg), np.float32)
+            self._lib.hnsw_adjacency(self._h, max_deg, idx, mask)
         mask_t = torch.from_numpy(mask).to(self.device)
         return NeighborGraph(nbr_idx=torch.from_numpy(idx).to(self.device), nbr_mask=mask_t,
                              edge_weight=mask_t.clone())

@@ -135,7 +135,9 @@ def sample_negatives(generator: torch.Generator, graph: NeighborGraph, anchor_id
                      n_negatives: int) -> torch.Tensor:
     """Host-side uniform negatives avoiding each anchor and its neighbours,
     from an explicit CPU torch.Generator (deterministic given its seed).
-    Returns int32 [len(anchor_ids), n_negatives] on the CPU."""
+    Returns int32 [len(anchor_ids), n_negatives] on the CPU. Raises
+    ValueError where an anchor's neighbours and itself cover every node
+    (the JAX package draws there for ever)."""
     n = graph.num_nodes
     nbr = graph.nbr_idx.cpu().numpy()
     mask = graph.nbr_mask.cpu().numpy()
@@ -144,6 +146,9 @@ def sample_negatives(generator: torch.Generator, graph: NeighborGraph, anchor_id
     for row, a in enumerate(anchors):
         forbidden = set(nbr[a][mask[a] > 0].tolist())
         forbidden.add(int(a))
+        if len(forbidden) >= n:
+            raise ValueError(f"node {int(a)} neighbours every other node of the graph: "
+                             f"no negative to draw")
         cand = torch.randint(0, n, (n_negatives * 2,), generator=generator).tolist()
         picked = [c for c in cand if c not in forbidden][:n_negatives]
         while len(picked) < n_negatives:

@@ -24,9 +24,8 @@ PORT_ROOT = REPO / "ruvector_tpu_torch"
 
 # JAX modules the port does not have yet, and the ROADMAP item that ports
 # each; a name that a shared `__init__` re-exports from one waits for it
-WAITING = {
-    "serve.sql": "item 24",
-}
+# (empty: every JAX module outside ops/pallas has its counterpart)
+WAITING: dict[str, str] = {}
 
 
 def _relative(path: Path, root: Path) -> str:
@@ -87,10 +86,19 @@ def test_shared_modules_cover_this_slice():
                 "mincut.dynamic", "mincut.global_dynamic", "mincut.local", "mincut.sparsify",
                 "mincut.expander", "mincut.jtree", "parallel", "parallel.mesh",
                 "parallel.partition", "parallel.halo", "parallel.tp", "parallel.ep",
-                "parallel.pp", "parallel.sp", "parallel.multihost", "serve.distributed"):
+                "parallel.pp", "parallel.sp", "parallel.multihost", "serve.distributed",
+                "serve", "serve.sql", "serve.server", "serve.mcp", "__main__"):
         assert rel in SHARED, rel
-    assert not set(WAITING) & set(SHARED), "a ported module is still listed as waiting"
-    assert set(WAITING.values()) == {"item 24"}
+    assert not WAITING, "a module is still listed as waiting"
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Apart from the Pallas kernels (each has a CUDA counterpart), every
+    module of the JAX package exists in the port."""
+    jax = {_relative(p, JAX_ROOT) for p in JAX_ROOT.rglob("*.py")}
+    missing = sorted(m for m in jax - set(SHARED)
+                     if m != "ops.pallas" and not m.startswith("ops.pallas."))
+    assert missing == []
 
 
 @pytest.mark.parametrize("rel", SHARED, ids=lambda r: r or "<top>")

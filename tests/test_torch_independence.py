@@ -98,6 +98,10 @@ from ruvector_tpu_torch.ops.kernels.gated_block_layer import (
 from ruvector_tpu_torch.ops.kernels.mincut_gate_block import mincut_gate_block_from_x
 from ruvector_tpu_torch.ops.kernels.neighbor_mix import fused_neighbor_mix
 from ruvector_tpu_torch.ops.kernels.spmm import spmm_gather
+from ruvector_tpu_torch.__main__ import main as cli_main
+from ruvector_tpu_torch.serve.mcp import McpServer
+from ruvector_tpu_torch.serve.server import RuvectorServer
+from ruvector_tpu_torch.serve.sql import SqlEngine
 from ruvector_tpu_torch.solver import BmsspSolver, TrueSolver, cg_solve, forward_push_ppr
 from ruvector_tpu_torch.sona import BaseLoRA, MicroLoRA, SonaEngine
 from ruvector_tpu_torch.sona.federated import FederatedAggregator
@@ -183,7 +187,7 @@ for mod in ("native", "index.filter", "index.hnsw", "index.hyperbolic_hnsw", "in
     assert "ruvector_tpu_torch." + mod in names, mod
 for mod in ("parallel.mesh", "parallel.partition", "parallel.halo", "parallel.tp",
             "parallel.ep", "parallel.pp", "parallel.sp", "parallel.multihost", "parallel.gated",
-            "serve.distributed"):
+            "serve.distributed", "serve.sql", "serve.server", "serve.mcp", "__main__"):
     assert "ruvector_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
@@ -200,8 +204,9 @@ def test_imports_no_jax_and_no_jax_package():
     attention family, the witness log, the quantization ops, the 19
     modules of the min-cut-gated transformer, the solvers, the rest of
     the graph transformers, SONA, mining, the worker, the host utilities,
-    the native runtime, the indexes, the property graph, Cypher and the
-    min-cut toolkit included."""
+    the native runtime, the indexes, the property graph, Cypher, the
+    min-cut toolkit, the parallel package and the front ends (SQL, HTTP,
+    MCP, the CLI) included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -228,7 +233,8 @@ def test_port_names_no_path_of_the_jax_package_native_runtime():
 _FIRST_IMPORTS = ("nn.ruvector_layer", "nn.block_dense_layer", "training.train",
                   "ops.kernels.mincut_gate_block", "models.ruvector_net", "sona.engine",
                   "training.mining", "utils.cold_tier", "native", "index.vector_db",
-                  "graph.cypher", "mincut", "mincut.jtree")
+                  "graph.cypher", "mincut", "mincut.jtree", "serve.sql", "serve.server",
+                  "serve.mcp", "__main__")
 
 
 @pytest.mark.parametrize("mod", _FIRST_IMPORTS)
@@ -313,6 +319,10 @@ _ENTRY_POINTS = {
         np.zeros((2, 2), np.float32), _PLAN, np.arange(2)),
     "make_blocked_layer_forward": lambda: make_blocked_layer_forward(
         RuvectorNetConfig(2, 4, heads=2), _PLAN),
+    "SqlEngine": lambda: SqlEngine(),
+    "RuvectorServer": lambda: RuvectorServer(port=0),
+    "McpServer": lambda: McpServer(),
+    "cli_main": lambda: cli_main(["info", "no-such-collection"]),
 }
 
 

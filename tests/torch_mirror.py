@@ -143,11 +143,18 @@ class Recorder:
         self.mp.setattr(owner, name, staticmethod(call) if static else call)
 
 
-def run_case(anchor: str, case: str, port: bool, tmp_path: Path, param=None) -> None:
-    """Run one case of tests/<anchor> on the JAX package or on the port."""
+def run_case(anchor: str, case: str, port: bool, tmp_path: Path, param=None,
+             fixtures: dict | None = None, rewrite=None) -> None:
+    """Run one case of tests/<anchor> on the JAX package or on the port.
+    A case's argument is `tmp_path`, an entry of `fixtures` (e.g. pytest's
+    capsys), a fixture that the anchor file defines (called without
+    arguments), or else its parametrize value. `rewrite(src)` edits the
+    port's copy of the source after the renaming."""
     src = (TESTS / anchor).read_text()
     if port:
         src = re.sub(r"\bruvector_tpu\b(?!_torch)", "ruvector_tpu_torch", src)
+        if rewrite is not None:
+            src = rewrite(src)
     ns = {"__name__": f"mirror_{anchor[:-3]}_{'port' if port else 'jax'}"}
     exec(compile(src, str(TESTS / anchor), "exec"), ns)
     fn = ns[case]
@@ -157,7 +164,13 @@ def run_case(anchor: str, case: str, port: bool, tmp_path: Path, param=None) -> 
         tmp_path.mkdir(parents=True)
         kwargs["tmp_path"] = tmp_path
     for name in sig:
-        if name != "tmp_path":
+        if name == "tmp_path":
+            continue
+        if fixtures and name in fixtures:
+            kwargs[name] = fixtures[name]
+        elif hasattr(ns.get(name), "__wrapped__"):
+            kwargs[name] = ns[name].__wrapped__()
+        else:
             kwargs[name] = param
     fn(**kwargs)
 
