@@ -51,6 +51,13 @@ card:
     state's masks, its gradient, then w - 1e-3 g; remat, bf16 compute),
     with the kernel route's gradients held against the plain route's on
     the first 244 partitions.
+  * config 5 at the JAX package's 10M-node size (`[config5_10m]`,
+    CONFIG5_10M_r05.json): 9,999,872 nodes, 39,062 partitions of 256,
+    bf16 features, edge table and compute, on the chunked routes (ten
+    chunks of 4096 partitions): init, steady, drift and train steps with
+    each one's launches against the design's, then the chunked routes
+    against the straight ones on the first 5,000 partitions. The 1M
+    state leaves the card while it runs.
   * config 5's layers on a layout with a halo (120,000 nodes, 240-node
     partitions, B % 32 != 0): init, steady and drift steps and one train
     step, against the plain route.
@@ -146,11 +153,22 @@ package beside this script.
     python3 chip_smoke.py native index graph_store mincut  (those phases alone)
     python3 chip_smoke.py parallel                         (that phase alone)
     python3 chip_smoke.py front_ends                       (that phase alone)
+    python3 chip_smoke.py config5_10m                      (that phase alone)
+
+The kernel-free phases on the bench graph (`[gnn_family]`,
+`[attention_rest]`, `[solver]`, `[graph_transformer_rest]`) and
+`[quantization]` run first, while nvcc builds the kernels on a worker
+thread. The main run leaves to the phases run alone the host work that
+the CPU tests hold: the Python routes of `[native]` and `[mincut]`, the
+SQL load by INSERT text past its first two statements, and
+`[front_ends]`' CLI, SQL HNSW route, worker, fault controls and MCP's
+min-cut.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
@@ -673,6 +691,22 @@ C5_ROUTE_TOL = (5e-2, 5e-3)
 # the SGD rate, and the partitions of the gradient check (the budget's
 # count; the layout is halo-free, so a slice of partitions is its own graph)
 C5_TRAIN_STEPS, C5_TRAIN_LR, C5_GRAD_PARTS = 4, 1e-3, 244
+# config 5 at the JAX package's 10M-node size (CONFIG5_10M_r05.json,
+# benchmarks/config5_r03.py:69-75,110: 78,124 clusters of 128, 39,062
+# partitions of 256, bf16 features, edge table and compute); the first
+# C5_10M_SUB partitions as their own graph for the chunked-against-straight
+# checks (two chunks of gated._CHUNK_NB = 4096, the second short); the JAX
+# chunked tests' limits on the train loss (relative) and on every gradient
+# leaf (of its largest magnitude), tests/test_gated_graph_transformer.py:685
+C5_10M_NODES, C5_10M_SUB = 9_999_872, 5_000
+C5_10M_LOSS_RTOL, C5_10M_GRAD_TOL = 3e-5, 6e-5
+# one layer of the kernel route against the plain composition on the bf16
+# stream, relative to the output's largest magnitude (agree_scaled): the
+# plain composition rounds the stream to bf16 after each of its three
+# residual sums and the kernel once, so besides C5_ROUTE_TOL's share
+# (about 1e-2 max and 1e-3 mean of outputs of order 1-5) the two may
+# differ by two bf16 steps of the largest output (2^-7)
+C5_10M_ROUTE_TOL = (2e-2, 2e-3)
 # config 5's layers on a layout with a halo: clusters of 120, two per
 # 240-node partition (B % 32 = 16), k=16 of which 14 within the cluster
 H_NODES, H_CLUSTER, H_BLOCK, H_K, H_K_IN = 120_000, 120, 240, 16, 14
@@ -813,7 +847,7 @@ PAR_TP = dict(hidden=1024, heads=16, head_dim=64, ffn=4096)
 PAR_EP = dict(hidden=1024, ffn=4096, num_experts=4)
 PAR_TP_TOKENS, PAR_EP_TOKENS, PAR_PP_MICRO, PAR_PP_ROWS, PAR_PP_D = 512, 2048, 8, 512, 1024
 PAR_SP_SEQ, PAR_SP_D, PAR_SEARCH_Q, PAR_SEARCH_K = 8192, 64, 1024, 10
-PAR_SOURCES = ("gated_block_layer", "gated_block_attn", "gated_block_mha", "mincut_gate_block")
+C5_SOURCES = ("gated_block_layer", "gated_block_attn", "gated_block_mha", "mincut_gate_block")
 PAR_C5_KERNELS = ("gated_block_layer", "gated_block_layer_with_sig", "block_gate_signature_ln_x",
                   "mincut_gate_block_from_x", "gated_block_attention_fwd",
                   "gated_block_attention_bwd")
@@ -1017,8 +1051,9 @@ def _native_runtime() -> None:
     native.load_library("hnsw")
 
 
-def phase_build() -> None:
-    seconds = _lib.build()
+def phase_build(seconds: dict) -> None:
+    """The build's report: `seconds` from _lib.build(), the native
+    runtime, each source's ptxas spills, every library loaded."""
     _native_runtime()
     spills = []
     for name in _lib.SOURCES:
@@ -1858,6 +1893,268 @@ def phase_config5_train(gparams, gcfg, c5: dict) -> dict:
         edges_per_s=edges / (step_ms * 1e-3), peak_mem_gb=round(peak_gb, 2),
         launches_per_step=per_step, grad_check_partitions=C5_GRAD_PARTS)
     return {k: counts[k] for k in want}
+
+
+@contextlib.contextmanager
+def straight_routes():
+    """gated's chunked routes switched off: _CHUNK_NB above any nB."""
+    saved = gated._CHUNK_NB
+    gated._CHUNK_NB = sys.maxsize
+    try:
+        yield
+    finally:
+        gated._CHUNK_NB = saved
+
+
+def c5_on(c5: dict, dev) -> dict:
+    """The config-5 phase's result with its tensors, and its graph's, on
+    `dev` (the 1M state leaves the card while `[config5_10m]` runs)."""
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        if isinstance(v, BlockDenseGraph):
+            return dataclasses.replace(v, **{f.name: getattr(v, f.name).to(dev)
+                                             for f in dataclasses.fields(v)
+                                             if isinstance(getattr(v, f.name), torch.Tensor)})
+        return v
+
+    return {k: move(v) for k, v in c5.items()}
+
+
+def equal_parts(name: str, got: dict, want: dict) -> None:
+    """Two runs' named tensors, bit for bit."""
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    say("equal", name=name, parts=list(want), differ=differ, ok=not differ)
+    if differ:
+        raise AssertionError(f"{name}: {differ} differ")
+
+
+def _step_parts(result) -> dict:
+    """A step's (out, state, re-solved) as named tensors."""
+    out, state, nres = result
+    return {"out": out, "re-solved": torch.tensor(nres), **state}
+
+
+def phase_config5_10m(gparams, gcfg, d: int) -> dict:
+    """Config 5 at the JAX package's 10M-node size (CONFIG5_10M_r05.json,
+    benchmarks/config5_r03.py:69-75,110): 9,999,872 nodes in clusters of
+    128 made on the card, 39,062 halo-free partitions of 256, bf16
+    features, edge table and compute, budget nB/16 = 2,441. The chunked
+    routes run it (gated._CHUNK_NB = 4096: ten chunks, the last of 2,198):
+    gate_state_init, C5_STEPS steady steps (each re-solves 0), as many
+    drift steps (bf16 noise on the card, each re-solves 1 to twice the
+    budget) and C5_TRAIN_STEPS train steps through the whole-model chunked
+    loss (zero targets, the state's masks, w - lr g), each phase's launches
+    against the design's count. Then on the first C5_10M_SUB partitions as
+    their own graph (two chunks, the second short) the chunked routes
+    against the straight ones: init and a steady and a drift step bit for
+    bit, the train loss within C5_10M_LOSS_RTOL and every gradient leaf
+    within C5_10M_GRAD_TOL of its scale; and layer 0's kernel route
+    against the plain composition on the first C5_GRAD_PARTS partitions.
+    Returns the phase's launches by kernel."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats, idx, ew = cluster_graph(C5_10M_NODES, d, C5_K)
+    feats = feats.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bdg = build_block_dense(idx.cpu().numpy(), np.ones((C5_10M_NODES, C5_K), np.float32),
+                            ew.cpu().numpy(), block=C5_BLOCK, dtype=torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    del idx, ew
+    nb, b = bdg.n_blocks, bdg.block
+    if bdg.table != b or nb * b != C5_10M_NODES or bdg.wdense.dtype != torch.bfloat16:
+        raise AssertionError(f"config 5 at 10M: not a halo-free bf16 layout: nB={nb} B={b} "
+                             f"T={bdg.table} {bdg.wdense.dtype}")
+    fpad = bdg.pad_features(feats)
+    del feats
+    layers, chunks = gcfg.num_layers, -(-nb // gated._CHUNK_NB)
+    budget = max(1, int(nb * gcfg.max_resolve_frac))
+    step = gated.gated_graph_transformer_step
+
+    def expect(name: str, counts: dict, want: dict) -> dict:
+        got = {k: v for k, v in counts.items() if v}
+        if got != want:
+            raise AssertionError(f"config5_10m {name}: launches {got}, the design's {want}")
+        return got
+
+    with torch.no_grad():
+        # --- init: K7 and K6c over every partition, K4a a chunk -------------
+        (state, init_ms), counts = counted(C5_KERNELS[2:] + ("gated_block_layer",), lambda: (
+            _synced_ms(lambda: gated.gate_state_init(gparams, gcfg, fpad, bdg))))
+        init_counts = expect("init", counts, {
+            "mincut_gate_block_from_x": layers, "block_gate_signature_ln_x": layers,
+            "gated_block_layer": layers * chunks})
+
+        # --- steady steps: K6c on layer 0, K4b a chunk (layers 0..L-2), K4a
+        # a chunk (the last layer) ----------------------------------------------
+        def steady():
+            st, times, res = state, [], []
+            for _ in range(C5_STEPS):
+                (out, st, nres), ms = _synced_ms(lambda: step(gparams, gcfg, fpad, bdg, st))
+                times.append(ms)
+                res.append(nres)
+            return out, st, times, res
+
+        per_step = {"block_gate_signature_ln_x": 1,
+                    "gated_block_layer_with_sig": (layers - 1) * chunks,
+                    "gated_block_layer": chunks}
+        (out, st_steady, steady_ms, steady_res), counts = counted(list(per_step), steady)
+        steady_counts = expect("steady steps", counts,
+                               {k: v * C5_STEPS for k, v in per_step.items()})
+        if any(steady_res) or out.shape != fpad.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"config5_10m: steady steps re-solved {steady_res} (must be "
+                                 "0) or gave a non-finite output")
+
+        # --- drift steps: bf16 noise drawn on the card; one K7 launch for
+        # each layer that re-solves ---------------------------------------------
+        noise = torch.Generator(device=DEV).manual_seed(7)
+        padcol = bdg.node_pad.reshape(-1, 1).to(torch.bfloat16)
+
+        def drift():
+            f, st, times, res, solving = fpad, st_steady, [], [], 0
+            for _ in range(C5_STEPS):
+                f = f + C5_DRIFT * torch.randn(f.shape, generator=noise, device=DEV,
+                                               dtype=torch.bfloat16) * padcol
+                (out, st, nres), ms = _synced_ms(lambda: step(gparams, gcfg, f, bdg, st))
+                times.append(ms)
+                res.append(nres)
+                solving += int((st["age"] == 0).any(dim=1).sum())
+            return out, f, st, times, res, solving
+
+        (out, f_drift, st_drift, drift_ms, drift_res, solving), counts = counted(
+            list(per_step) + ["mincut_gate_block_from_x"], drift)
+        drift_counts = expect("drift steps", counts, {
+            **{k: v * C5_STEPS for k, v in per_step.items()},
+            "mincut_gate_block_from_x": solving})
+        if (not all(0 < r <= 2 * budget for r in drift_res) or out.shape != fpad.shape
+                or not bool(torch.isfinite(out).all())):
+            raise AssertionError(f"config5_10m: drift steps re-solved {drift_res} (must be in "
+                                 f"1..{2 * budget}) or gave a non-finite output")
+        del out, st_steady, st_drift
+
+    # --- train steps: the whole-model chunked loss, K4a twice a chunk and
+    # layer (forward, the chunk's recompute), K5a and K5b once -----------------
+    cfg = dataclasses.replace(gcfg, remat=True)
+
+    def train_step(params):
+        loss, leaves, grads = _loss_and_grads(params, cfg, fpad, bdg, state["keep"])
+        with torch.no_grad():
+            return _rebuild(params, [w - C5_TRAIN_LR * g for w, g in zip(leaves, grads)]), loss
+
+    def train():
+        params, times, losses = gparams, [], []
+        for _ in range(C5_TRAIN_STEPS):
+            (params, loss), ms = _synced_ms(lambda: train_step(params))
+            times.append(ms)
+            losses.append(float(loss))
+        return params, times, losses
+
+    per_train = {"gated_block_layer": 2 * layers * chunks,
+                 "gated_block_attention_fwd": layers * chunks,
+                 "gated_block_attention_bwd": layers * chunks}
+    (params, train_ms, losses), counts = counted(list(per_train), train)
+    train_counts = expect("train steps", counts,
+                          {k: v * C5_TRAIN_STEPS for k, v in per_train.items()})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"config5_10m: a non-finite train loss {losses}")
+    if not max(float((a - w).abs().max()) for a, w in zip(_leaves(params), _leaves(gparams))) > 0:
+        raise AssertionError("config5_10m: the train steps did not move the parameters")
+    del params
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # --- the first C5_10M_SUB partitions: chunked against straight ------------
+    sub, rows = first_partitions(bdg, C5_10M_SUB), C5_10M_SUB * b
+    sub_chunks = -(-C5_10M_SUB // gated._CHUNK_NB)
+    fsub, fsub_drift = fpad[:rows], f_drift[:rows].contiguous()
+    del f_drift
+    with torch.no_grad():
+        runs = {}
+        for route in ("chunked", "straight"):
+            with contextlib.ExitStack() as ctx:
+                if route == "straight":
+                    ctx.enter_context(straight_routes())
+                st, counts = counted([], lambda: gated.gate_state_init(gparams, gcfg, fsub, sub))
+                steady_out = step(gparams, gcfg, fsub, sub, st)
+                drift_out = step(gparams, gcfg, fsub_drift, sub, st)
+                runs[route] = (st, steady_out, drift_out, counts["gated_block_layer"])
+        (st_c, steady_c, drift_c, k4a_c), (st_s, steady_s, drift_s, k4a_s) = (
+            runs["chunked"], runs["straight"])
+        if (k4a_c, k4a_s) != (layers * sub_chunks, layers):
+            raise AssertionError(f"config5_10m sub-graph: init launched K4a {k4a_c} times "
+                                 f"chunked and {k4a_s} straight (the design: "
+                                 f"{layers * sub_chunks}, {layers})")
+        name = f"config5_10m first {C5_10M_SUB} partitions"
+        equal_parts(f"{name}: init, chunked vs straight", st_c, st_s)
+        equal_parts(f"{name}: steady step, chunked vs straight", _step_parts(steady_c),
+                    _step_parts(steady_s))
+        equal_parts(f"{name}: drift step, chunked vs straight", _step_parts(drift_c),
+                    _step_parts(drift_s))
+        sub_resolved = drift_c[2]
+        del runs, steady_c, steady_s, drift_c, drift_s, st_s
+    keep_sub = st_c["keep"]
+    (loss_c, _, grads_c), counts = counted([], lambda: _loss_and_grads(gparams, cfg, fsub, sub,
+                                                                      keep_sub))
+    if counts["gated_block_layer"] != 2 * layers * sub_chunks:
+        raise AssertionError(f"config5_10m sub-graph: the train step launched K4a "
+                             f"{counts['gated_block_layer']} times, not the chunked loss's "
+                             f"{2 * layers * sub_chunks}")
+    with straight_routes():
+        loss_s, _, grads_s = _loss_and_grads(gparams, cfg, fsub, sub, keep_sub)
+    loss_err = abs(float(loss_c) - float(loss_s)) / abs(float(loss_s))
+    names = [f"{li}/{'/'.join(k)}" for li, layer in enumerate(gparams)
+             for k in gated._flatten(layer)[0]]
+    grad_errs = {n: float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                 for n, a, w in zip(names, grads_c, grads_s)}
+    ok = loss_err <= C5_10M_LOSS_RTOL and max(grad_errs.values()) <= C5_10M_GRAD_TOL
+    say("agree", name=f"config5_10m first {C5_10M_SUB} partitions: train loss and gradients, "
+        "chunked vs straight", loss_chunked=float(loss_c), loss_straight=float(loss_s),
+        loss_rel_err=loss_err, loss_rtol=C5_10M_LOSS_RTOL,
+        grad_max_rel_err=max(grad_errs.values()),
+        grad_worst_leaf=max(grad_errs, key=grad_errs.get), grad_tol=C5_10M_GRAD_TOL, ok=ok)
+    if not ok:
+        raise AssertionError("config5_10m: the chunked train step disagrees with the straight one")
+    del grads_c, grads_s, keep_sub, st_c
+
+    # --- layer 0: kernel route (K4a) vs the plain composition -----------------
+    with torch.no_grad():
+        part = first_partitions(bdg, C5_GRAD_PARTS)
+        x0 = fpad[:C5_GRAD_PARTS * b].reshape(C5_GRAD_PARTS, b, d)
+        keep0 = state["keep"][0][:C5_GRAD_PARTS]
+        agree_scaled(f"config5_10m layer 0, first {C5_GRAD_PARTS} partitions: kernel route "
+                     "(K4a) vs plain composition",
+                     gated._layer_with_keep(gparams[0], gcfg, x0, part, keep0, fused=True),
+                     gated._layer_with_keep(gparams[0], dataclasses.replace(
+                         gcfg, fused_gate_attn="never"), x0, part, keep0, fused=True),
+                     torch.bfloat16, tol=C5_10M_ROUTE_TOL)
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    edges = C5_10M_NODES * C5_K * layers
+    steady_med, drift_med = statistics.median(steady_ms), statistics.median(drift_ms)
+    train_med = statistics.median(train_ms)
+    say("config5_10m", nodes=C5_10M_NODES, nB=nb, B=b, d=d, heads=gcfg.num_heads,
+        layers=layers, chunk_nb=gated._CHUNK_NB, chunks=chunks, budget=budget,
+        dtype="bfloat16", edges_per_step=edges, gen_s=round(gen_s, 3),
+        layout_s=round(layout_s, 3), gate_init_ms=init_ms, forward_steady_ms=steady_med,
+        forward_drift_ms=drift_med, resolved_per_drift_step=drift_res,
+        edges_per_s_steady=edges / (steady_med * 1e-3),
+        edges_per_s_drift=edges / (drift_med * 1e-3), train_step_ms=train_med,
+        train_edges_per_s=edges / (train_med * 1e-3), losses=losses,
+        peak_mem_gb=round(peak_gb, 2), train_peak_mem_gb=round(train_peak_gb, 2),
+        sub_partitions=C5_10M_SUB,
+        sub_drift_resolved=sub_resolved, seconds=round(time.perf_counter() - t_phase, 1))
+    say("config5_10m_steps", steady_ms=[round(t, 3) for t in steady_ms],
+        drift_ms=[round(t, 3) for t in drift_ms], train_ms=[round(t, 3) for t in train_ms])
+    say("config5_10m_launches", init=init_counts, steady=steady_counts, drift=drift_counts,
+        train=train_counts, per_steady_step=per_step, per_train_step=per_train,
+        drift_layers_resolving=solving)
+    launches = collections.Counter()
+    for c in (init_counts, steady_counts, drift_counts, train_counts):
+        launches.update(c)
+    return dict(launches)
 
 
 def halo_graph(n: int, d: int, seed: int = 1):
@@ -4575,14 +4872,18 @@ def _valid_draws(nbr: np.ndarray, mask: np.ndarray, idx: np.ndarray, smask: np.n
         raise AssertionError("sample_fanout: a draw is not a neighbour, repeats, or drops one")
 
 
-def phase_native(feats: torch.Tensor, graph: NeighborGraph, d: int) -> None:
+def phase_native(feats: torch.Tensor, graph: NeighborGraph, d: int,
+                 python_routes: bool = True) -> None:
     """The port's own native runtime (`[native]`): the library must build
     (its g++ seconds and paths are printed); then each native route
     against its Python route. Config 5's 999,936-node layout (uniform
     256-node blocks) by the device fill and the Python route; GraphSAGE's
     fanout draws on the 100k graph by both routes (each checked, the
     forward run on the native draws against the CPU); the min-cut gate over the 390 sequences of `[attention_rest]` by
-    the native Dinic, and its first NT_PY_SEQS by the Python Dinic too."""
+    the native Dinic, and its first NT_PY_SEQS by the Python Dinic too.
+    Without `python_routes` (the main run) the Python routes, host work
+    that tests/test_torch_native.py holds to the native ones, are left
+    out."""
     t_phase = time.perf_counter()
     before = kernels.launch_counts()
     _native_runtime()
@@ -4601,9 +4902,10 @@ def phase_native(feats: torch.Tensor, graph: NeighborGraph, d: int) -> None:
 
     ms = {}
     fill, ms["device_fill"] = _synced_ms(layout)
-    python, ms["python"] = _synced_ms(lambda: _python_route(layout))
-    _equal_layouts("config5 layout: device fill vs Python route", fill, python)
-    del python
+    if python_routes:
+        python, ms["python"] = _synced_ms(lambda: _python_route(layout))
+        _equal_layouts("config5 layout: device fill vs Python route", fill, python)
+        del python
     # bf16: the device fill's table is its f32 table rounded
     _equal_layouts("config5 bf16 layout: device fill vs its f32 table rounded",
                    layout(dtype=torch.bfloat16),
@@ -4616,9 +4918,13 @@ def phase_native(feats: torch.Tensor, graph: NeighborGraph, d: int) -> None:
     # GraphSAGE's fanout draws
     nbr, mask = graph.nbr_idx.cpu().numpy(), graph.nbr_mask.cpu().numpy()
     (n_idx, n_mask), native_ms = _synced_ms(lambda: sample_fanout(graph, NT_FANOUT, seed=42))
-    (p_idx, p_mask), python_ms = _synced_ms(
-        lambda: _python_route(lambda: sample_fanout(graph, NT_FANOUT, seed=42)))
-    for i, m in ((n_idx, n_mask), (p_idx, p_mask)):
+    draws = [(n_idx, n_mask)]
+    p_idx, python_ms = None, None
+    if python_routes:
+        (p_idx, p_mask), python_ms = _synced_ms(
+            lambda: _python_route(lambda: sample_fanout(graph, NT_FANOUT, seed=42)))
+        draws.append((p_idx, p_mask))
+    for i, m in draws:
         _valid_draws(nbr, mask, i.cpu().numpy(), m.cpu().numpy(), NT_FANOUT)
     sage_cfg = GraphSAGENetConfig(in_features=d, hidden_features=d, out_features=d,
                                   fanouts=(NT_FANOUT,))
@@ -4628,7 +4934,8 @@ def phase_native(feats: torch.Tensor, graph: NeighborGraph, d: int) -> None:
     agree_cpu("GraphSAGE layer on the native draws", out,
               graphsage_apply(_tree_cpu(sage_p[0]), lc, feats.cpu(), n_idx.cpu(), n_mask.cpu()))
     say("native_sampling", nodes=graph.num_nodes, fanout=NT_FANOUT, native_ms=native_ms,
-        python_ms=python_ms, ids_equal_across_routes=bool(torch.equal(n_idx, p_idx)))
+        python_ms=python_ms,
+        ids_equal_across_routes=None if p_idx is None else bool(torch.equal(n_idx, p_idx)))
 
     # the min-cut gate: native against Python
     k = feats.shape[0] // MC_SEQ
@@ -4646,7 +4953,7 @@ def phase_native(feats: torch.Tensor, graph: NeighborGraph, d: int) -> None:
         if lam_cut >= MC_LAM_MAX:
             raise AssertionError(f"no gate cuts at lam up to {lam_cut}")
         lam_cut *= 2
-    for lam in (0.5, lam_cut):
+    for lam in (0.5, lam_cut) if python_routes else ():
         # the first sequences and the first that the native gate cut
         cut_seqs = [i for i, r in enumerate(res[lam]) if r.cut_cost > 0]
         seqs = sorted(set(range(NT_PY_SEQS // 2)) | set(cut_seqs[:NT_PY_SEQS // 2]))
@@ -4662,7 +4969,8 @@ def phase_native(feats: torch.Tensor, graph: NeighborGraph, d: int) -> None:
                       "python_ms_per_seq": py_ms / len(seqs)})
     say("native_mincut_gate", sequences=k, seq_len=MC_SEQ, native_ms_per_seq=native_ms / k,
         lam_cut=lam_cut,
-        by_lam=json.dumps(costs, separators=(",", ":")), masks_equal=True)
+        cuts=[sum(r.cut_cost > 0 for r in res[lam]) for lam in (0.5, lam_cut)],
+        by_lam=json.dumps(costs, separators=(",", ":")), masks_equal=python_routes or None)
     after = kernels.launch_counts()
     say("native_done", seconds=round(time.perf_counter() - t_phase, 1),
         kernel_launches=sum(after[n] - before[n] for n in after))
@@ -5094,7 +5402,7 @@ def _cluster_neighbourhood(graph: NeighborGraph, labels: np.ndarray, c: int):
     return src, dst, np.asarray(list(pairs.values()), np.float32), len(nodes)
 
 
-def phase_mincut(graph: NeighborGraph, labels: np.ndarray) -> None:
+def phase_mincut(graph: NeighborGraph, labels: np.ndarray, python_routes: bool = True) -> None:
     """The min-cut toolkit (`[mincut]`). Host workloads: the maintainers
     are host C++ (native) or numpy (Python); the card runs only the CSR
     parts (PPR push) and the CG solves. The global maintainer at
@@ -5103,8 +5411,10 @@ def phase_mincut(graph: NeighborGraph, labels: np.ndarray) -> None:
     maintainer at MINCUT_SCALE_r02.json's 100k row (its 2,000 mixed
     updates, a query after each, on native.IncrementalMinCut as the
     benchmark drives it; the DynamicMinCut facade on the first
-    MC_ST_FACADE, equal); the Python maintainer against the native one on
-    the 20k cell's first MC_PY_UPDATES updates (1e-4 at every query); then
+    MC_ST_FACADE, equal); with `python_routes` (the phase run alone: host
+    work that tests/test_torch_mincut_toolkit.py holds) the Python
+    maintainer against the native one on the 20k cell's first
+    MC_PY_UPDATES updates (1e-4 at every query); then
     on the bench graph's symmetrised CSR on the card, its clusters joined
     in a ring by light bridges: local_cluster and local_k_cut from one
     node (a cut of positive conductance), and on one cluster's
@@ -5155,21 +5465,22 @@ def phase_mincut(graph: NeighborGraph, labels: np.ndarray) -> None:
     del st, facade, edges
 
     # the Python maintainer against the native one: the 20k cell
-    mcs = [DynamicMinCut(MC_PY_CL * MC_PY_SIZE, source=None, backend=b)
-           for b in ("native", "python")]
-    rng = np.random.default_rng(0)
-    both = types.SimpleNamespace(insert_edge=lambda u, v, w: [mc.insert_edge(u, v, w)
-                                                              for mc in mcs])
-    live = _clustered_global(both, rng, MC_PY_CL, MC_PY_SIZE)
-    first, py_ms = _synced_ms(lambda: [mc.cut_value() for mc in mcs])
-    vals, py_stream_ms = _synced_ms(lambda: _reweight_stream(mcs, live, rng, MC_PY_UPDATES))
-    worst = max(abs(a - b) / max(abs(a), 1e-12) for a, b in [first] + vals)
-    if worst > 1e-4 or type(mcs[1]._g).__name__ != "GlobalDynamicMinCut":
-        raise AssertionError(f"global min cut: Python vs native differ by {worst} relative")
-    say("mincut_python_route", nodes=MC_PY_CL * MC_PY_SIZE, edges=len(live),
-        updates=MC_PY_UPDATES, queries_equal=len(vals) + 1, max_rel_diff=worst,
-        first_query_ms_both=py_ms, stream_ms_both=py_stream_ms)
-    del mcs
+    if python_routes:
+        mcs = [DynamicMinCut(MC_PY_CL * MC_PY_SIZE, source=None, backend=b)
+               for b in ("native", "python")]
+        rng = np.random.default_rng(0)
+        both = types.SimpleNamespace(insert_edge=lambda u, v, w: [mc.insert_edge(u, v, w)
+                                                                  for mc in mcs])
+        live = _clustered_global(both, rng, MC_PY_CL, MC_PY_SIZE)
+        first, py_ms = _synced_ms(lambda: [mc.cut_value() for mc in mcs])
+        vals, py_stream_ms = _synced_ms(lambda: _reweight_stream(mcs, live, rng, MC_PY_UPDATES))
+        worst = max(abs(a - b) / max(abs(a), 1e-12) for a, b in [first] + vals)
+        if worst > 1e-4 or type(mcs[1]._g).__name__ != "GlobalDynamicMinCut":
+            raise AssertionError(f"global min cut: Python vs native differ by {worst} relative")
+        say("mincut_python_route", nodes=MC_PY_CL * MC_PY_SIZE, edges=len(live),
+            updates=MC_PY_UPDATES, queries_equal=len(vals) + 1, max_rel_diff=worst,
+            first_query_ms_both=py_ms, stream_ms_both=py_stream_ms)
+        del mcs
 
     # the bench graph's CSR on the card, each cluster's first node joined
     # to the next cluster's by a light bridge (the kNN clusters are
@@ -5375,7 +5686,7 @@ def _rank_setup(mesh) -> None:
     (the parent built every kernel and the native runtime)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    missing = [n for n in PAR_SOURCES if not _lib.library_path(n).exists()]
+    missing = [n for n in C5_SOURCES if not _lib.library_path(n).exists()]
     if missing and mesh.device.type == "cuda":
         raise RuntimeError(f"a rank would build {missing}: the parent builds before spawning")
 
@@ -6257,12 +6568,15 @@ def _fe_sql(feats_np: np.ndarray, labels: np.ndarray, flat: FlatIndex, flat_l2: 
     exact kNN by each operator and under a WHERE, the card's distances
     against a CPU engine's, count/UPDATE/DELETE; with `full`, an HNSW
     index on a 10k table against the exact route, the GNN worker and the
-    fault controls."""
+    fault controls. Without `full` only the first two INSERT statements
+    go by text and the other rows into the table directly: the text
+    route's parse is host work (tests/test_torch_sql.py holds it)."""
     n, d = feats_np.shape
+    text_rows = n if full else 2 * FE_SQL_BATCH
     eng = SqlEngine(device=DEV)
     eng.execute(f"CREATE TABLE items (id serial, cluster int, embedding ruvector({d}))")
     t0 = time.perf_counter()
-    texts = _sql_insert_texts(feats_np, labels, "items", n)
+    texts = _sql_insert_texts(feats_np, labels, "items", text_rows)
     text_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, insert_top = _host_profile(lambda: eng.execute(texts[0]))
@@ -6271,6 +6585,8 @@ def _fe_sql(feats_np: np.ndarray, labels: np.ndarray, flat: FlatIndex, flat_l2: 
     insert_s = time.perf_counter() - t0
     del texts
     table = eng.tables["items"]
+    for i in range(text_rows, n):
+        table.append_row({"cluster": int(labels[i]), "embedding": feats_np[i]})
     if len(table) != n or not np.array_equal(table.vecs["embedding"], feats_np) \
             or table.data["id"][-1] != n:
         raise AssertionError("SQL load: the table differs from the corpus")
@@ -6391,8 +6707,9 @@ def _fe_sql(feats_np: np.ndarray, labels: np.ndarray, flat: FlatIndex, flat_l2: 
                  "hnsw_recall_at_10": hnsw_recall, "gnn_train_s": gnn_s,
                  "gnn_loss": status["loss"], "gnn_param_count": model["param_count"]}
     eng.close()
-    say("front_ends_sql", rows=n, d=d, statement_rows=FE_SQL_BATCH, text_s=text_s,
-        insert_s=insert_s, insert_rows_per_s=n / insert_s, first_insert_host_top=insert_top,
+    say("front_ends_sql", rows=n, d=d, statement_rows=FE_SQL_BATCH, text_rows=text_rows,
+        text_s=text_s, insert_s=insert_s, insert_rows_per_s=text_rows / insert_s,
+        first_insert_host_top=insert_top,
         knn_ms=json.dumps(knn_ms), knn_host_top=knn_top, knn_queries=json.dumps({"<->": FE_SQL_L2, "<=>": FE_SQL_OTHER,
                                                            "<#>": FE_SQL_OTHER}),
         ids_equal_share=json.dumps(share_equal), where_queries=FE_SQL_WHERE,
@@ -6458,10 +6775,11 @@ def phase_front_ends(feats_np: np.ndarray, labels: np.ndarray, d: int, db: Vecto
     upserts, its searches, the concurrent storm, scroll, point GET,
     DELETE and /sql; the MCP server's search, train and four query modes;
     the SQL engine with the corpus loaded by INSERT text and its exact kNN
-    by every operator; with `full` (the phase run alone), also MCP's
-    min-cut tool, the SQL HNSW route, GNN worker and fault controls, and
-    the CLI. The front ends launch none of the 13 kernels (their layers
-    keep use_pallas=False, as in the JAX package): the phase checks it."""
+    by every operator; with `full` (the phase run alone), the whole load
+    by text (else its first two statements), MCP's min-cut tool, the SQL
+    HNSW route, GNN worker and fault controls, and the CLI. The front ends
+    launch none of the 13 kernels (their layers keep use_pallas=False, as
+    in the JAX package): the phase checks it."""
     t_phase = time.perf_counter()
     flat = FlatIndex(dim=d, metric="cosine", device=DEV)
     flat.add_batch(feats_np)
@@ -6494,19 +6812,15 @@ def config5_config(d: int, heads: int) -> gated.GatedGraphTransformerConfig:
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
-    phase_build()
+    # nvcc compiles every kernel on a worker thread while the phases that
+    # launch none run: the plain families on the bench graph and vector
+    # quantization (the build's seconds overlap theirs)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    build = pool.submit(_lib.build)
+    pool.shutdown(wait=False)
 
+    # --- the bench's headline graph -------------------------------------------
     d, k, heads = 128, 16, 4
-    cfg = RuvectorLayerConfig(d, d, heads=heads, compute_dtype="bfloat16")
-    params = ruvector_layer_init(0, cfg, device=DEV)
-    k1_f32_grade_err = phase_parity(params, cfg)
-    gcfg = config5_config(d, heads)
-    gparams = gated.gated_graph_transformer_init(0, gcfg, device=DEV)
-    phase_gated_parity(gparams, gcfg)
-    phase_train_parity(gparams, gcfg)
-    phase_serve_parity()
-
-    # --- main path: the bench's headline route ------------------------------
     t0 = time.perf_counter()
     feats_np, labels = bench_clusters(N_NODES, d)
     graph = build_knn_graph(feats_np, k=k, block=2048, device=DEV)
@@ -6519,7 +6833,24 @@ def main() -> int:
     say("graph", nodes=N_NODES, k=k, edges=edges, knn_s=round(t_knn, 3),
         layout_s=round(t_layout, 3), nB=bdg.n_blocks, B=bdg.block, T=bdg.table,
         halo_ok=bdg.table <= 2 * bdg.block)
+    feats = torch.from_numpy(feats_np).to(DEV)
+    phase_gnn_family(feats, graph, d, heads)
+    phase_attention_rest(feats, graph, d)
+    phase_solver(graph)
+    phase_graph_transformer_rest(feats, graph, perm[:GT_ROWS], d, heads)
+    phase_quantization(d)
+    phase_build(build.result())
 
+    cfg = RuvectorLayerConfig(d, d, heads=heads, compute_dtype="bfloat16")
+    params = ruvector_layer_init(0, cfg, device=DEV)
+    k1_f32_grade_err = phase_parity(params, cfg)
+    gcfg = config5_config(d, heads)
+    gparams = gated.gated_graph_transformer_init(0, gcfg, device=DEV)
+    phase_gated_parity(gparams, gcfg)
+    phase_train_parity(gparams, gcfg)
+    phase_serve_parity()
+
+    # --- main path: the bench's headline route ------------------------------
     def main_path():
         x = fpad
         for _ in range(ITERS):
@@ -6550,7 +6881,6 @@ def main() -> int:
 
     cfg32 = RuvectorLayerConfig(d, d, heads=heads)
     cfg_k3 = RuvectorLayerConfig(d, d, heads=heads, use_pallas=True)
-    feats = torch.from_numpy(feats_np).to(DEV)
     k3_out, counts = counted(["fused_neighbor_mix"],
                              lambda: ruvector_layer_apply(params, cfg_k3, feats, graph))
     launches["fused_neighbor_mix"] = counts["fused_neighbor_mix"]
@@ -6563,10 +6893,6 @@ def main() -> int:
     if net_out.shape != (N_NODES, d) or not bool(torch.isfinite(net_out).all()):
         raise AssertionError("RuvectorNet output is not finite or has the wrong shape")
     say("ruvector_net", layers=2, nodes=N_NODES, d=d, heads=heads, finite=True)
-    phase_gnn_family(feats, graph, d, heads)
-    phase_attention_rest(feats, graph, d)
-    phase_solver(graph)
-    phase_graph_transformer_rest(feats, graph, perm[:GT_ROWS], d, heads)
 
     # --- config 5: the gated graph transformer's serving path ---------------
     with torch.no_grad():
@@ -6582,6 +6908,15 @@ def main() -> int:
                  "block_gate_signature_x"):
         launches[name] = train_launches.get(name, 0) + c5_halo["launches"][name]
     launches["block_gate_signature"] = 0
+
+    # --- config 5 at 10M nodes on the chunked routes, the 1M state off the card
+    c5 = c5_on(c5, torch.device("cpu"))
+    torch.cuda.empty_cache()
+    c5_10m = phase_config5_10m(gparams, gcfg, d)
+    torch.cuda.empty_cache()
+    c5 = c5_on(c5, DEV)
+    for name, n in c5_10m.items():
+        launches[name] += n
     phase_contrastive(params, cfg, feats, graph)
     phase_sona(feats, graph, labels)
     phase_training_utils(params, cfg, gparams, feats_np, feats, graph, perm, fpad, bdg)
@@ -6590,16 +6925,15 @@ def main() -> int:
     launches["fused_neighbor_mix"] += phase_serve(feats_np, feats, graph, d, heads)
     rr = phase_rerank(d)
     launches["flash_neighbor_attention"] = rr["launches"]
-    phase_quantization(d)
     sp = phase_csr_spmm(d)
     launches["spmm_gather"] = sp["launches"]
 
     # --- the native runtime, the database, the property graph, min-cut -----
-    phase_native(feats, graph, d)
+    phase_native(feats, graph, d, python_routes=False)
     ix = phase_index(feats_np, feats, labels, d, heads)
     launches["fused_neighbor_mix"] += ix["launches"]
     launches["fused_neighbor_mix"] += phase_graph_store(feats_np, feats, labels, graph, d, heads)
-    phase_mincut(graph, labels)
+    phase_mincut(graph, labels, python_routes=False)
     phase_front_ends(feats_np, labels, d, ix.pop("db"), full=FE_FULL_IN_MAIN)
     peak_before = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -6683,6 +7017,7 @@ def main() -> int:
             if launches[name] < 1 and name not in OFF_PATH:
                 raise AssertionError(f"{name} was not launched on its path")
             extra["parallel_launches_per_rank"] = par["launches_per_rank"][name]
+            extra["config5_10m_launches"] = c5_10m.get(name, 0)
             lines.append({"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "launches": launches[name],
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -6706,9 +7041,9 @@ def main() -> int:
 # native index graph_store mincut`, `python3 chip_smoke.py parallel`): on
 # the 100k-node graph, for iterating on them without the whole script;
 # `training_utils` builds K1's source (its profiled layer), `index` and
-# `graph_store` K3's, `parallel` config 5's four
+# `graph_store` K3's, `parallel` and `config5_10m` config 5's four
 PHASES_ALONE = ("solver", "graph_transformer_rest", "sona", "training_utils", "native",
-                "index", "graph_store", "mincut", "parallel", "front_ends")
+                "index", "graph_store", "mincut", "parallel", "front_ends", "config5_10m")
 
 
 def phases_alone(names: list[str]) -> int:
@@ -6745,9 +7080,13 @@ def phases_alone(names: list[str]) -> int:
         db = VectorDB(DbOptions(dimensions=d), device=DEV)
         db.insert_batch(feats_np, payloads=[_fe_payload(i, labels) for i in range(len(labels))])
         phase_front_ends(feats_np, labels, d, db)
-    if "parallel" in names:
-        say("build_sources", **{k: round(v, 1) for k, v in _lib.build(PAR_SOURCES).items()})
+    if {"parallel", "config5_10m"} & set(names):
+        say("build_sources", **{k: round(v, 1) for k, v in _lib.build(C5_SOURCES).items()})
         _native_runtime()
+    if "config5_10m" in names:
+        gcfg = config5_config(d, heads)
+        phase_config5_10m(gated.gated_graph_transformer_init(0, gcfg, device=DEV), gcfg, d)
+    if "parallel" in names:
         phase_parallel(feats_np, graph, d, heads)
     if "training_utils" in names:
         say("build_sources", **{k: round(v, 1) for k, v in _lib.build(("block_dense_attn",)).items()})

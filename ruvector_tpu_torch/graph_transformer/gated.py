@@ -40,10 +40,26 @@ The stateless forward solves its gates in runs of `gate_chunk`
 partitions, as the JAX package's `_ceil_chunked_map` does there: each
 run's gates once, without autograd, and its attention checkpointed (at
 999,936 nodes the whole [nB, H, B, B] logits and the gate's buffers
-would not fit beside a training step). The JAX package's
-other chunked routes (`_CHUNK_NB`, `_loss_chunked_halo_free`) exist to
-fit 10M nodes into 16 GB of TPU memory and are not ported: the straight
-path runs at every nB.
+would not fit beside a training step). The plain gate of
+`gate_state_init` goes in the same runs.
+
+Chunked routes: above `_CHUNK_NB` partitions (nB > 4096, as in the JAX
+package) a route runs over the block axis in chunks of `_CHUNK_NB`
+(`_chunked_map`), where the JAX package bounds the same intermediates:
+the FFN, the plain layer composition, the fused layer (K4a a chunk),
+the step's layer with the next signature (K4b a chunk), and the train
+step's whole L-layer network with its loss sums
+(`_loss_chunked_halo_free`, routed from
+`gated_graph_transformer_loss_with_masks` on a halo-free layout on the
+kernel route). A chunk is a view of the full tensors, never a copy, and
+under autograd each chunk is checkpointed, so the backward holds one
+chunk's intermediates at a time. At 9,999,872 nodes (nB = 39,062) the
+straight train step's recompute would hold a [39,062, 256, 256] float32
+edge table (10.2 GB) beside [9,999,872, 512] float32 FFN tensors (20.5
+GB each), and it runs out of an 80 GB card's memory. Every block is
+independent in every layer, so a chunked route gives the straight
+route's values: the forward's bit for bit, the loss and gradients to
+float32 summation order. Parallel callers route on their own nB.
 
 The step branches on the host where JAX uses `lax.cond` (any partition
 flagged?), which is one device-to-host sync per layer per step.
@@ -95,8 +111,8 @@ class GatedGraphTransformerConfig:
     num_layers: int = 2
     lam: float = 0.5            # gate threshold multiplier (mincut.rs:163)
     eps: float = 0.01           # positive-logit clamp
-    # partitions a gate run of the stateless forward takes at a time
-    # (memory bound)
+    # partitions a run of plain gate solves takes at a time (the stateless
+    # forward, gate_state_init's plain route; memory bound)
     gate_chunk: int = 256
     # 'pooled': one gate per partition over the head-mean logits, mask
     # shared across heads; 'per_head': one gate per head (stateless only)
@@ -403,10 +419,53 @@ def _use_fused_attn(cfg, device: torch.device) -> bool:
         cfg.fused_gate_attn == "auto" and device.type == "cuda")
 
 
+# the chunked routes' bound on the block axis (the JAX package's): above
+# it a route runs in chunks of this many partitions. Tests monkeypatch it
+# to drive the chunked routes on small graphs.
+_CHUNK_NB = 4096
+
+
+def _checkpointed(f, *args):
+    """f(*args), checkpointed under autograd: the backward recomputes f
+    from its arguments instead of keeping its intermediates."""
+    if not torch.is_grad_enabled():
+        return f(*args)
+    return torch.utils.checkpoint.checkpoint(f, *args, use_reentrant=False)
+
+
+def _chunked_map(f, args, nb: int, chunk: int, checkpoint: bool = True):
+    """f over the leading (block) axis of `args` in ceil(nb / chunk)
+    chunks, each f(*[a[s:e] for a in args]) on views of the full tensors;
+    the last chunk is the shorter one. f returns a tensor or a tuple of
+    tensors, each with the chunk's rows first; the chunks' results are
+    written into outputs of nb rows (under autograd through slice
+    assignment, whose backward hands each chunk its rows). Under autograd
+    each chunk is checkpointed unless `checkpoint` is False. One chunk
+    is f(*args) itself."""
+    if nb <= chunk:
+        return f(*args)
+    outs, single = None, False
+    for s in range(0, nb, chunk):
+        part = [a[s:s + chunk] for a in args]
+        y = _checkpointed(f, *part) if checkpoint else f(*part)
+        single = isinstance(y, torch.Tensor)
+        ys = (y,) if single else y
+        if outs is None:
+            outs = [t.new_empty((nb, *t.shape[1:])) for t in ys]
+        for o, t in zip(outs, ys):
+            o[s:s + chunk] = t
+    return outs[0] if single else tuple(outs)
+
+
 def _ffn_apply(p, h2, pad, out_dtype):
-    """Pre-norm FFN; the hidden and the output rounded to out_dtype."""
-    mid = gelu_tanh(_linear(p["ffn_in"], h2)).to(out_dtype)
-    return _linear(p["ffn_out"], mid).to(out_dtype) * pad[..., None].to(out_dtype)
+    """Pre-norm FFN; the hidden and the output rounded to out_dtype. Above
+    _CHUNK_NB partitions in chunks: the float32 [nB, B, ffn_mult*D]
+    hidden exists one chunk at a time."""
+    def ffn(hh, pp):
+        mid = gelu_tanh(_linear(p["ffn_in"], hh)).to(out_dtype)
+        return _linear(p["ffn_out"], mid).to(out_dtype) * pp[..., None].to(out_dtype)
+
+    return _chunked_map(ffn, (h2, pad), h2.shape[0], _CHUNK_NB)
 
 
 def _compose_layer(cfg, p, x, attn, pad, mix):
@@ -436,15 +495,19 @@ def _layer_body_halo_free(cfg, p, x, keep_p, pad, wdense):
     """The sublayer composition of one gated layer on a halo-free layout
     (the neighbour mix is one block-local product): the fused layer's
     reference semantics and its backward's recompute, with the gated MHA
-    kernel on the kernel route."""
+    kernel on the kernel route. Above _CHUNK_NB partitions in
+    checkpointed chunks, each chunk's sublayers one after another."""
     dt = x.dtype
+    kernel = _use_fused_attn(cfg, x.device)
 
-    def mix(g):
-        agg = torch.matmul(wdense.to(dt).float(), g.float()).to(dt)
-        return _linear(p["w_gnn"], agg)
+    def body(xc, kc, pc, wc):
+        def mix(g):
+            agg = torch.matmul(wc.to(dt).float(), g.float()).to(dt)
+            return _linear(p["w_gnn"], agg)
 
-    attn = _attention(cfg, p, keep_p, pad, _use_fused_attn(cfg, x.device))
-    return _compose_layer(cfg, p, x, attn, pad, mix)
+        return _compose_layer(cfg, p, xc, _attention(cfg, p, kc, pc, kernel), pc, mix)
+
+    return _chunked_map(body, (x, keep_p, pad, wdense), x.shape[0], _CHUNK_NB)
 
 
 def _kernel_wdense(cfg, bdg: BlockDenseGraph) -> torch.Tensor:
@@ -499,7 +562,9 @@ class _FusedLayer(torch.autograd.Function):
     (the JAX package's zero cotangents): the graph is data, not trained.
     Under remat the checkpoint's recompute of this forward skips the
     kernel: its output is never read there (the backward needs only the
-    saved inputs), as XLA drops the dead recompute in the JAX package."""
+    saved inputs), as XLA drops the dead recompute in the JAX package.
+    The chunked loss's checkpoints keep the kernel in their recompute: a
+    chunk's next layer reads this output there."""
 
     @staticmethod
     def forward(ctx, cfg, keys, keep_p, pad, wdense, x, *leaves):
@@ -547,24 +612,40 @@ _FUSE_NEXT_SIG = True
 
 def _layer_with_keep_emit_sig(p, p_next, cfg, x, bdg, keep_p):
     """Fused layer plus the next layer's gate signature (K4b). Returns
-    (out, sig_next [nB])."""
-    out, rsum, rcnt = gated_block_layer_with_sig(
-        x, keep_p, bdg.node_pad, _kernel_wdense(cfg, bdg), fold_gated_layer_params(p, cfg),
-        _fold_sig_params(p_next, cfg), *_ln_vectors(p_next["ln1"]),
-        compute_bf16=cfg.compute_dtype == "bfloat16", sig_eps=cfg.eps)
+    (out, sig_next [nB]). Above _CHUNK_NB partitions one K4b a chunk: the
+    signature's rows are block-local, so the chunks' rows joined are the
+    straight launch's."""
+    folded = fold_gated_layer_params(p, cfg)
+    sig = (_fold_sig_params(p_next, cfg), *_ln_vectors(p_next["ln1"]))
+
+    def run(xc, kc, pc, wc):
+        return gated_block_layer_with_sig(xc, kc, pc, wc, folded, *sig,
+                                          compute_bf16=cfg.compute_dtype == "bfloat16",
+                                          sig_eps=cfg.eps)
+
+    out, rsum, rcnt = _chunked_map(run, (x, keep_p, bdg.node_pad, _kernel_wdense(cfg, bdg)),
+                                   x.shape[0], _CHUNK_NB)
     return out, _row_mean_signature(rsum, rcnt)
 
 
 def _layer_with_keep(p, cfg, x, bdg, keep_p, fused=False):
     """One layer under bit-packed masks keep_p [nB, ceil(B/32), B] int32.
-    The kernel route on a halo-free layout is one fused kernel (K4a); with
-    a halo it is LN1, the gated MHA kernel (K5a) and the plain neighbour
-    mix and FFN; otherwise the plain sublayer composition. Every tensor
-    between the sublayers stays in x's dtype."""
+    The kernel route on a halo-free layout is one fused kernel (K4a), one
+    a chunk above _CHUNK_NB partitions; with the fused layer switched off
+    there, the plain composition of _layer_body_halo_free; with a halo it
+    is LN1, the gated MHA kernel (K5a) and the plain neighbour mix and
+    FFN; otherwise the plain sublayer composition. Every tensor between
+    the sublayers stays in x's dtype."""
     pad = bdg.node_pad
     use_fused = fused and _use_fused_attn(cfg, x.device)
     if use_fused and _use_fused_layer(bdg):
-        return _fused_layer_halo_free(cfg, p, x, keep_p, pad, _kernel_wdense(cfg, bdg))
+        # no checkpoint: the Function keeps only its inputs (views of the
+        # full tensors) and its backward recomputes one chunk's body
+        return _chunked_map(lambda *a: _fused_layer_halo_free(cfg, p, *a),
+                            (x, keep_p, pad, _kernel_wdense(cfg, bdg)), x.shape[0], _CHUNK_NB,
+                            checkpoint=False)
+    if use_fused and bdg.table == bdg.block:
+        return _layer_body_halo_free(cfg, p, x, keep_p, pad, bdg.wdense)
     return _compose_layer(cfg, p, x, _attention(cfg, p, keep_p, pad, use_fused), pad,
                           lambda g: _neighbor_mix(g, bdg, p["w_gnn"]))
 
@@ -630,7 +711,10 @@ def _gate_state_init(params, cfg, fpad, bdg: BlockDenseGraph, nb_total: int, off
             sigs.append(_signature_from_x(x, p, A_sig, bdg.node_pad, cfg))
         else:
             h = _ln(p["ln1"], x).to(x.dtype)
-            keeps.append(_solve_gates_plain(h, bdg.node_pad, A_sig, cfg))
+            # in runs of gate_chunk partitions: one run's pooled logits and
+            # gate buffers at a time
+            keeps.append(_chunked_map(lambda hc, pc: _solve_gates_plain(hc, pc, A_sig, cfg),
+                                      (h, bdg.node_pad), nb, cfg.gate_chunk, checkpoint=False))
             sigs.append(_signature_fused_x(h, A_sig, bdg.node_pad, cfg) if fused else
                         _gate_signature(_pooled_from_x(h, bdg.node_pad, A_sig), cfg.eps))
         x = _layer_with_keep(p, cfg, x, bdg, keeps[-1], fused=True)
@@ -773,11 +857,42 @@ def gated_graph_transformer_apply_with_masks(params, cfg: GatedGraphTransformerC
     return x.reshape(nb * b, -1)
 
 
+def _loss_chunked_halo_free(params, cfg, x, pad, wdense, keep_masks, tgt):
+    """The whole-model loss on a halo-free layout, one chunk of _CHUNK_NB
+    partitions at a time: every sublayer is block-local, so the L-layer
+    network and the loss sums run end to end per chunk, each chunk
+    checkpointed (no full-width activation stays alive; the backward
+    recomputes one chunk's layers, K4a each, and each fused layer's
+    backward recomputes its body, K5a and K5b), and the parameter
+    gradients add up across chunks. x, tgt [nB, B, D], pad [nB, B], wdense
+    [nB, B, B], keep_masks [L, nB, ceil(B/32), B]."""
+    nb = x.shape[0]
+
+    def chunk_sums(xc, pc, wc, tc, *kcs):
+        for p, kc in zip(params, kcs):
+            xc = _fused_layer_halo_free(cfg, p, xc, kc, pc, wc)
+        err = (xc - tc).float() * pc[..., None]
+        return torch.sum(err * err), torch.sum(pc)
+
+    err_sum = pad_sum = 0.0
+    for s in range(0, nb, _CHUNK_NB):
+        part = [t[s:s + _CHUNK_NB] for t in (x, pad, wdense, tgt, *keep_masks)]
+        es, ps = _checkpointed(chunk_sums, *part)
+        err_sum, pad_sum = err_sum + es, pad_sum + ps
+    return err_sum / torch.clamp(pad_sum, min=1.0)
+
+
 def gated_graph_transformer_loss_with_masks(params, cfg: GatedGraphTransformerConfig, fpad,
                                             bdg: BlockDenseGraph, keep_masks, targets):
     """Mean-squared node-embedding loss under fixed masks: the train
-    step's loss (benchmarks/config5_r03.py:204-226). The JAX package's
-    whole-model chunked loss for nB > 4096 (`_loss_chunked_halo_free`) is
-    not ported; the straight path runs at every nB."""
+    step's loss (benchmarks/config5_r03.py:204-226). Above _CHUNK_NB
+    partitions of a halo-free layout on the kernel route, the whole-model
+    chunked loss (_loss_chunked_halo_free; cfg.remat has no effect there,
+    each chunk is checkpointed)."""
+    nb, b = bdg.n_blocks, bdg.block
+    if nb > _CHUNK_NB and _use_fused_attn(cfg, fpad.device) and _use_fused_layer(bdg):
+        return _loss_chunked_halo_free(params, cfg, fpad.reshape(nb, b, -1), bdg.node_pad,
+                                       _kernel_wdense(cfg, bdg), keep_masks,
+                                       targets.reshape(nb, b, -1))
     return _loss(gated_graph_transformer_apply_with_masks(params, cfg, fpad, bdg, keep_masks),
                  bdg, targets)

@@ -865,6 +865,80 @@ def _rebuild(params, leaves):
                  else next(it)) for k in sorted(layer)} for layer in params]
 
 
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_chunked_routes_match_straight(card, monkeypatch, xdt):
+    """Config 5's chunked routes through the kernels (gated._CHUNK_NB = 2
+    on nB = 5: chunks of 2, 2 and 1) against the straight routes, on f32
+    and on bf16 features with bf16 compute: gate_state_init and a drifted
+    step bit for bit (K7, K6c, K4b and K4a a chunk), the train loss within
+    3e-5 (the JAX chunked tests' limit) and every gradient leaf of the
+    whole-model chunked loss against the straight loss under remat, each
+    route with the launches its design gives. Gradients: 6e-5 of each
+    leaf's scale (the JAX tests' limit) on f32 features; on bf16 features
+    the backward's recompute rounds the cotangent of the residual stream
+    to bf16 after each sublayer, and a product summed in another order
+    (the recompute's products over 1,280 rows straight, over 512 or 256 a
+    chunk) may round one bf16 step (2^-8) the other way, which over this
+    graph's 1,280 rows moves a weight gradient by up to ~1e-3 of its scale
+    (3.0e-4 read on an H100): 2e-3, the bf16 bound of
+    tests/test_torch_gated_train.py. Over 1,280,000 rows
+    (`chip_smoke.py`'s `[config5_10m]`) the same steps average out and
+    6e-5 holds."""
+    from ruvector_tpu_torch.graph_transformer import gated
+
+    rng = np.random.default_rng(20)
+    n, block, d = 5 * 256, 256, 128
+    base = (np.arange(n)[:, None] // block) * block
+    idx = (base + rng.integers(0, block, (n, 16))).astype(np.int32)
+    ew = rng.uniform(0.1, 1.0, (n, 16)).astype(np.float32)
+    bdg = build_block_dense(idx, np.ones((n, 16), np.float32), ew, block=block, device=card)
+    assert bdg.table == bdg.block and bdg.n_blocks == 5
+    cfg = GatedGraphTransformerConfig(dim=d, num_heads=4, num_layers=2, remat=True,
+                                      compute_dtype="bfloat16", hysteresis_band=0.0)
+    params = gated_graph_transformer_init(0, cfg, device=card)
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    fpad = bdg.pad_features(torch.from_numpy(feats).to(card, xdt))
+    drifted = bdg.pad_features(torch.from_numpy(
+        feats + 0.3 * rng.normal(size=(n, d)).astype(np.float32)).to(card, xdt))
+
+    def run():
+        reset_launch_counts()
+        with torch.no_grad():
+            st = gate_state_init(params, cfg, fpad, bdg)
+            step = gated_graph_transformer_step(params, cfg, drifted, bdg, st)
+        counts = launch_counts()
+        leaves = [t.clone().requires_grad_(True) for layer in params for t in _leaves(layer)]
+        reset_launch_counts()
+        loss = gated_graph_transformer_loss_with_masks(_rebuild(params, leaves), cfg, fpad, bdg,
+                                                       st["keep"], torch.zeros_like(fpad))
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return st, step, float(loss.detach()), grads, counts, launch_counts()
+
+    st_s, step_s, loss_s, grads_s, serve_s, train_s = run()
+    monkeypatch.setattr(gated, "_CHUNK_NB", 2)
+    st_c, step_c, loss_c, grads_c, serve_c, train_c = run()
+    assert step_c[2] == step_s[2] > 0
+    assert torch.equal(step_c[0], step_s[0])
+    for k in ("keep", "sig", "age"):
+        assert torch.equal(st_c[k], st_s[k]) and torch.equal(step_c[1][k], step_s[1][k]), k
+    assert abs(loss_c - loss_s) <= 3e-5 * abs(loss_s)
+    for a, w in zip(grads_c, grads_s):
+        _rel_close(a, w, 6e-5 if xdt == torch.float32 else 2e-3)
+    k7 = serve_s["mincut_gate_block_from_x"]
+    assert k7 == serve_c["mincut_gate_block_from_x"] > 2
+    assert {k: v for k, v in serve_s.items() if v} == {
+        "mincut_gate_block_from_x": k7, "block_gate_signature_ln_x": 3,
+        "gated_block_layer": 3, "gated_block_layer_with_sig": 1}
+    assert {k: v for k, v in serve_c.items() if v} == {
+        "mincut_gate_block_from_x": k7, "block_gate_signature_ln_x": 3,
+        "gated_block_layer": 9, "gated_block_layer_with_sig": 3}
+    assert {k: v for k, v in train_s.items() if v} == {
+        "gated_block_layer": 2, "gated_block_attention_fwd": 2, "gated_block_attention_bwd": 2}
+    assert {k: v for k, v in train_c.items() if v} == {
+        "gated_block_layer": 12, "gated_block_attention_fwd": 6, "gated_block_attention_bwd": 6}
+
+
 def test_auto_route_takes_the_kernels_at_d64(card):
     """Under "auto", CUDA tensors take the kernel route at any width the
     kernels take: D=64 on a halo-free layout launches K7, K6c and K4a at
