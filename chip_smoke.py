@@ -139,6 +139,16 @@ card:
     global re-solve budget, the masked gradient; K4a, K4b, K5a, K5b, K6c
     and K7 on every rank), each against the same computation in one
     process; then the forward at world 1 on NCCL.
+  * BASELINE config 4, the query-feedback learning loop (`[config4]`,
+    benchmarks/learned_recall_curve.py): a 20,000 x 64 corpus in 64
+    clusters, its threaded HNSW index (m 16) and k=8 kNN graph, a 4-head
+    RuvectorLayer re-ranker (score = raw_cos + beta * gnn_cos) trained by
+    one Adam step and fed one SONA trajectory per query; recall@10 on 400
+    held-out queries through K3 before and after a 1,000-query stream,
+    the first 50 steps against the CPU, a stream fed a wrong cluster's
+    clicks (must miss the gain), and the session-update tier
+    (`make_online_update`) over the corpus's graph against the CPU. Alone,
+    it streams on to 10,000 and 100,000 queries.
 
 Prints one line per phase, the card's name and power limit, a `kernels`
 JSON line (launches on the main paths, error against the plain version,
@@ -154,6 +164,7 @@ package beside this script.
     python3 chip_smoke.py parallel                         (that phase alone)
     python3 chip_smoke.py front_ends                       (that phase alone)
     python3 chip_smoke.py config5_10m                      (that phase alone)
+    python3 chip_smoke.py config4                          (that phase alone: the curve)
 
 The kernel-free phases on the bench graph (`[gnn_family]`,
 `[attention_rest]`, `[solver]`, `[graph_transformer_rest]`) and
@@ -519,8 +530,23 @@ from ruvector_tpu_torch.training.mining import (  # noqa: E402
     mine_negatives,
     spectral_regularizer,
 )
+from ruvector_tpu_torch.training.feedback import (  # noqa: E402
+    FeedbackConfig,
+    FeedbackLoop,
+    build_index,
+    make_corpus,
+    make_queries,
+    subgraph_graph,
+)
+from ruvector_tpu_torch.training.train import OnlineConfig, make_online_update  # noqa: E402
 from ruvector_tpu_torch.training.worker import GnnTrainingWorker, JobStatus  # noqa: E402
-from ruvector_tpu_torch.training.optimizers import tree_leaves, tree_map  # noqa: E402
+from ruvector_tpu_torch.training.losses import info_nce_loss  # noqa: E402
+from ruvector_tpu_torch.training.optimizers import (  # noqa: E402
+    requiring_grad,
+    tree_grad,
+    tree_leaves,
+    tree_map,
+)
 from ruvector_tpu_torch.transformer import (  # noqa: E402
     Decoder,
     GatePacket,
@@ -873,6 +899,21 @@ FE_SQL_INDEX_ROWS, FE_CLI_ROWS, FE_RECALL_MIN = 10_000, 2_000, 0.95
 # and leaves the CLI, the SQL HNSW route and worker, the fault controls and
 # MCP's min-cut tool to the phase run alone
 FE_FULL_IN_MAIN = False
+# BASELINE config 4 (`[config4]`, benchmarks/learned_recall_curve.py; the
+# protocol's constants are training/feedback.FeedbackConfig's, nothing
+# narrowed): the main run's stream (alone, the phase streams on to every
+# checkpoint). Checks: recall at 0 queries within C4_BASE_TOL of
+# HNSW-only (beta = 0 ranks by raw cosine, the index by its own distance:
+# they differ only at near ties, and 1e-3 of 4,000 top-10 places allows
+# four swaps at the 10th place); the gain at C4_STREAM queries at least
+# C4_GAIN (LEARNED_RECALL_r03.json reads +0.0395); at 10k and 100k at
+# least C4_GAIN_LATE, with recall at 100k no lower than at 10k less
+# C4_LATE_DROP. Recall is read every C4_EVERY queries up to C4_STREAM (a
+# multiple of it), the control's too. The steps held card against CPU,
+# the session-update tier's query nodes and its negatives a node
+# (TrainConfig's 64)
+C4_STREAM, C4_BASE_TOL, C4_GAIN, C4_GAIN_LATE, C4_LATE_DROP = 1_000, 1e-3, 0.02, 0.15, 0.01
+C4_EVERY, C4_PARITY_STEPS, C4_ONLINE_NODES, C4_ONLINE_NEGS = 100, 50, 32, 64
 
 
 def say(phase: str, **fields) -> None:
@@ -4984,9 +5025,12 @@ def _recall(ids: np.ndarray, truth: np.ndarray, k: int) -> float:
 def _k3_at(params, feats: torch.Tensor, g: NeighborGraph, heads: int):
     """K3's call and its plain version's at a graph's shapes (layer 0 of a
     stack, inputs as the `kernels` line builds them), its bound, and the
-    bound's time for the inputs as passed. The bound counts the gathered
-    rows of real slots only: a masked slot's row is padding that the
-    function needs not read (the HNSW graph fills 60% of its slots)."""
+    bound's time for the inputs as passed. The bound reads the mask in
+    full and the rest only where it is needed: the gathered rows and their
+    weights at real slots (a masked slot is padding of weight 0; the HNSW
+    graph fills 60% of its slots), u and the score bias at rows with a real
+    slot (a row with none mixes to zeros whatever they hold: config 4's
+    leaf rows, 8 of its 9)."""
     d = feats.shape[1]
     hd = d // heads
     wk = params["attn"]["k"]["kernel"].reshape(d, heads, hd)
@@ -4997,13 +5041,16 @@ def _k3_at(params, feats: torch.Tensor, g: NeighborGraph, heads: int):
             torch.einsum("nhf,hf->nh", q, bk).contiguous(),
             msg[g.nbr_idx.long()].contiguous(), g.nbr_mask.contiguous(),
             normalized_weights(g.edge_weight, g.nbr_mask).contiguous())
-    edges = int((g.nbr_mask > 0).sum())
+    real = g.nbr_mask > 0
+    edges, live = int(real.sum()), int(real.any(dim=1).sum())
     ops = {torch.float32: 2 * (2 * heads + 1) * d * edges}
     out = (heads + 1) * feats.shape[0] * d * 4
-    real_rows = edges * d * args[2].element_size()
+    per_row = (args[0][0].numel() * args[0].element_size()
+               + args[1][0].numel() * args[1].element_size())
+    per_edge = d * args[2].element_size() + args[4].element_size()
     return (lambda: fused_neighbor_mix(*args, heads=heads, scale=hd ** -0.5),
             lambda: fused_neighbor_mix_reference(*args, heads=heads, scale=hd ** -0.5),
-            bound(nbytes(args[0], args[1], args[3], args[4]) + real_rows + out, ops),
+            bound(nbytes(args[3]) + live * per_row + edges * per_edge + out, ops),
             bound(nbytes(*args) + out, ops)[0])
 
 
@@ -6801,6 +6848,269 @@ def phase_front_ends(feats_np: np.ndarray, labels: np.ndarray, d: int, db: Vecto
         kernel_launches=0)
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 4: the query-feedback learning loop
+# ---------------------------------------------------------------------------
+
+def _c4_gain(name: str, recall: float, hnsw_only: float, least: float) -> float:
+    """The re-rank's recall gain over HNSW-only; fails under `least`."""
+    gain = recall - hnsw_only
+    ok = gain >= least
+    say("check", name=name, recall_at_10=recall, hnsw_only=hnsw_only, gain=gain,
+        least=least, ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: gain {gain:+.4f} under {least:+.4f}")
+    return gain
+
+
+def _leaf_names(tree, path: str = "") -> list[str]:
+    """The paths of a parameter tree's leaves, in sorted_leaves' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{path}/{k}")]
+    return [path]
+
+
+def zero_grad_leaves(loss_fn, params) -> list[bool]:
+    """For each leaf of `params` (sorted order), whether the gradient of
+    loss_fn there, taken on the CPU as the reference, is zero to rounding:
+    its largest entry at most float32's epsilon times the largest of the
+    whole tree. Such a leaf (the attention key bias: the softmax ignores a
+    shift shared by every slot) moves by rounding noise alone, another on
+    each device."""
+    req = requiring_grad(tree_map(lambda t: t.detach().cpu(), params))
+    peaks = [float(g.abs().max()) for g in sorted_leaves(tree_grad(loss_fn(req), req))]
+    return [p <= torch.finfo(torch.float32).eps * max(peaks) for p in peaks]
+
+
+def agree_params(name: str, got, want, noise: list[bool]) -> float:
+    """Two parameter trees leaf by leaf, max and mean of |got - want|
+    within the f32 limits of each leaf's own largest magnitude; a leaf
+    flagged in `noise` (zero_grad_leaves) within those of the whole
+    tree's. Returns the largest relative max error."""
+    names = _leaf_names(want)
+    got = [t.detach().float().cpu() for t in sorted_leaves(got)]
+    want = [t.detach().float().cpu() for t in sorted_leaves(want)]
+    if [t.shape for t in got] != [t.shape for t in want] or len(noise) != len(want) or \
+            not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError(f"{name}: the trees' leaves differ in shape or are non-finite")
+    whole = max(float(t.abs().max()) for t in want)
+    rel = []
+    for a, b, flag in zip(got, want, noise):
+        scale = max(whole if flag else float(b.abs().max()), 1e-30)
+        err = (a - b).abs()
+        rel.append((float(err.max()) / scale, float(err.mean()) / scale))
+    tol_max, tol_mean = TOL[torch.float32]
+    worst = max(range(len(rel)), key=lambda i: rel[i][0] / tol_max + rel[i][1] / tol_mean)
+    ok = all(m <= tol_max and a <= tol_mean for m, a in rel)
+    say("agree", name=name, leaves=len(want),
+        whole_scale=[n for n, f in zip(names, noise) if f], worst_leaf=names[worst],
+        max_rel_err=max(m for m, _ in rel), mean_rel_err=max(a for _, a in rel),
+        tol_max=tol_max, tol_mean=tol_mean, ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: disagrees with its reference")
+    return max(m for m, _ in rel)
+
+
+def _c4_k3(cfg: FeedbackConfig, loop: FeedbackLoop, eval_cands: np.ndarray) -> dict:
+    """K3 at the held-out re-rank's rows (the layer's inputs as one
+    evaluation builds them: 400 subgraphs of 40 candidates and 320 leaf
+    rows, every leaf slot masked) against its plain version, and timed."""
+    ids = torch.from_numpy(eval_cands).to(DEV).long()
+    feats = torch.cat([loop.corpus[ids], loop.corpus[loop.nbr_idx[ids]].reshape(
+        len(ids), -1, cfg.dim)], dim=1).reshape(-1, cfg.dim)
+    g = subgraph_graph(loop.nbr_w[ids])
+    k3, k3_ref, (bound_ms, bound_by), as_passed = _k3_at(loop.params["layer"], feats, g,
+                                                        cfg.heads)
+    err = agree_scaled(f"K3 at config 4's evaluation rows ({g.num_nodes} x {g.max_degree})",
+                       k3(), k3_ref(), torch.float32)
+    return {"config4_rows": g.num_nodes, "config4_body": k3_body(cfg.heads, g.max_degree, cfg.dim),
+            "config4_max_abs_err": err, "config4_ms": time_ms(k3, iters=10),
+            "config4_plain_ms": time_ms(k3_ref, iters=10, warmup=1),
+            "config4_kernel_ms": kernel_ms(k3), "config4_bound_ms": bound_ms,
+            "config4_bound_by": bound_by, "config4_bound_ms_as_passed": as_passed}
+
+
+def _c4_session_updates(cfg: FeedbackConfig, params: dict, corpus: np.ndarray,
+                        graph: NeighborGraph, nodes: np.ndarray) -> dict:
+    """The session-update tier (training/train.make_online_update,
+    OnlineConfig defaults: 5 local SGD steps a query node, the layer's
+    params updated too) over the corpus's k=8 graph for each of `nodes` in
+    turn, on the card and on the CPU: params and embeddings within the f32
+    limits of scale. The card's calls are timed here; the CPU's then run
+    on a worker thread while the phase's untimed work goes on, and the
+    returned function waits for them, compares and reports."""
+    layer_cfg = cfg.layer_config()
+    update = make_online_update(layer_cfg, OnlineConfig())
+    graph_cpu = _graph_cpu(graph)
+    negs = sample_negatives(torch.Generator().manual_seed(0), graph_cpu, nodes, C4_ONLINE_NEGS)
+    feats = torch.from_numpy(corpus)
+    # the update's loss (train.make_online_update) at the first node
+    first = int(nodes[0])
+
+    def first_loss(p):
+        out = ruvector_layer_apply(p, layer_cfg, feats, graph_cpu)
+        return info_nce_loss(out[first], out[graph_cpu.nbr_idx[first].long()],
+                             out[negs[0].long()], 0.07)
+
+    def session(p, feats, g, neg_ids):
+        for node, neg in zip(nodes.tolist(), neg_ids):
+            p, feats = update(p, feats, g, node, neg)
+        return p, feats
+
+    (p_card, f_card), ms = _synced_ms(lambda: session(params, feats.to(DEV), graph, negs.to(DEV)))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_run = pool.submit(session, _tree_cpu(params), feats, graph_cpu, negs)
+    pool.shutdown(wait=False)
+
+    def finish() -> dict:
+        p_cpu, f_cpu = cpu_run.result()
+        agree_params("session updates: params, card vs CPU", p_card, p_cpu,
+                     zero_grad_leaves(first_loss, params))
+        agree_scaled("session updates: embeddings, card vs CPU", f_card.cpu(), f_cpu,
+                     torch.float32)
+        moved = int((f_cpu != feats).any(dim=1).sum())
+        if moved != len(set(nodes.tolist())):
+            raise AssertionError(f"session updates moved {moved} embeddings for {len(nodes)} nodes")
+        return {"session_updates": len(nodes), "session_update_ms": ms / len(nodes),
+                "session_local_steps": OnlineConfig().local_steps}
+
+    return finish
+
+
+def _c4_stream(loop: FeedbackLoop, index, queries: np.ndarray, clusters: np.ndarray,
+               read) -> tuple[dict, dict, float, float]:
+    """The stream on to C4_STREAM queries with `read(loop)` (recall on the
+    held-out queries) after every C4_EVERY: ({queries: reading}, the
+    host seconds by part, the stream's seconds, an evaluation's mean ms)."""
+    readings, seconds, stream_s, eval_s = {}, collections.Counter(), 0.0, 0.0
+    for stop in range(loop.steps + C4_EVERY, C4_STREAM + 1, C4_EVERY):
+        t0 = time.perf_counter()
+        seconds.update(loop.stream(index, queries, clusters, stop))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        readings[stop] = read(loop)
+        stream_s, eval_s = stream_s + t1 - t0, eval_s + time.perf_counter() - t1
+    return readings, dict(seconds), stream_s, eval_s * 1e3 / len(readings)
+
+
+def phase_config4(curve: bool = False) -> dict:
+    """BASELINE config 4 (`[config4]`): the query-feedback loop of
+    benchmarks/learned_recall_curve.py at its size (FeedbackConfig: a
+    20,000 x 64 corpus in 64 clusters informative in dims 0-15, HNSW m 16
+    built on threads, search ef 64 for 40 candidates, the k=8 cosine
+    graph, a 4-head RuvectorLayer re-ranker from seed 0, one Adam step and
+    one SONA trajectory a query). Recall@10 on the 400 held-out queries
+    (one stacked re-rank through K3) before a C4_STREAM-query stream and
+    every C4_EVERY queries of it, counted as the path's launches, the
+    control's at the same points; K3 at those rows against its
+    plain version; the first C4_PARITY_STEPS steps against the CPU; a
+    stream fed a wrong cluster's clicks must miss the gain; the
+    session-update tier against the CPU. With `curve`, the stream goes on
+    to 10,000 and 100,000 queries."""
+    t_phase = time.perf_counter()
+    cfg = FeedbackConfig()
+    threads = os.cpu_count() or 4
+    t0 = time.perf_counter()
+    corpus, labels = make_corpus(cfg)
+    index = build_index(cfg, corpus, num_threads=threads, device=DEV)
+    hnsw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = build_knn_graph(corpus, k=cfg.knn_k, device=DEV)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    params0 = {"beta": torch.zeros((), device=DEV),
+               "layer": ruvector_layer_init(0, cfg.layer_config(), device=DEV)}
+    eval_q, eval_c = make_queries(cfg, cfg.eval_queries, cfg.eval_seed)
+    eval_cands, _ = index.search_batch(eval_q, k=cfg.ef, ef=cfg.search_ef, num_threads=threads)
+    # the JAX script's stream is always drawn at its full length
+    stream_q, stream_c = make_queries(cfg, max(cfg.checkpoints), cfg.stream_seed)
+    loop = FeedbackLoop(cfg, corpus, labels, graph, params0, device=DEV)
+
+    def read(lp: FeedbackLoop) -> float:
+        return lp.eval_recall(eval_q, eval_c, eval_cands)[0]
+
+    def main_path():
+        return (loop.eval_recall(eval_q, eval_c, eval_cands),
+                _c4_stream(loop, index, stream_q, stream_c, read))
+
+    ((rr0, hnsw_only), (readings, seconds, stream_s, eval_ms)), counts = counted(
+        ["fused_neighbor_mix"], main_path)
+    launches = counts["fused_neighbor_mix"]
+    rr_1k = readings[C4_STREAM]
+    ok = abs(rr0 - hnsw_only) <= C4_BASE_TOL
+    say("check", name="config 4 at 0 queries: re-rank vs HNSW-only", recall_at_10=rr0,
+        hnsw_only=hnsw_only, tol=C4_BASE_TOL, ok=ok)
+    if not ok:
+        raise AssertionError("config 4: the untrained re-rank does not rank like raw cosine")
+    gain_1k = _c4_gain(f"config 4 after {C4_STREAM} queries", rr_1k, hnsw_only, C4_GAIN)
+    say("config4", nodes=cfg.n, dim=cfg.dim, clusters=cfg.n_clusters, ef=cfg.ef,
+        knn_k=cfg.knn_k, heads=cfg.heads, hnsw_build_s=round(hnsw_s, 3), knn_s=round(knn_s, 3),
+        hnsw_only_recall=hnsw_only, recall_at_0=rr0,
+        **{f"recall_at_{C4_STREAM}": rr_1k, f"gain_at_{C4_STREAM}": gain_1k},
+        beta=float(loop.params["beta"]),
+        **{k.replace("_s", "_ms_per_query"): v * 1e3 / C4_STREAM for k, v in seconds.items()},
+        stream_s=round(stream_s, 3), queries_per_s=C4_STREAM / stream_s, eval_ms=eval_ms,
+        k3_launches=launches)
+
+    k3 = _c4_k3(cfg, loop, eval_cands)
+    say("config4_k3", **k3)
+    nodes = index.search_batch(stream_q[:C4_ONLINE_NODES], k=1)[0][:, 0]
+    session_done = _c4_session_updates(cfg, params0["layer"], corpus, graph, nodes)
+
+    # the first steps on the card against the same steps on the CPU; the
+    # leaves whose gradient is zero to rounding, from the CPU's at the next
+    # query of the stream
+    card = FeedbackLoop(cfg, corpus, labels, graph, params0, device=DEV)
+    cpu = FeedbackLoop(cfg, corpus, labels, _graph_cpu(graph), _tree_cpu(params0), device="cpu")
+    for lp in (card, cpu):
+        lp.stream(index, stream_q, stream_c, C4_PARITY_STEPS)
+    nxt, _ = index.search(stream_q[C4_PARITY_STEPS], k=cfg.ef, ef=cfg.search_ef)
+    noise = zero_grad_leaves(lambda p: cpu.loss(p, stream_q[C4_PARITY_STEPS], nxt, cpu.rewards(
+        nxt, stream_c[C4_PARITY_STEPS])), cpu.params)
+    agree_params(f"config 4 after {C4_PARITY_STEPS} steps: card vs CPU", card.params, cpu.params,
+                 noise)
+
+    # control: clicks on the next cluster's candidates teach nothing useful
+    ctrl = FeedbackLoop(cfg, corpus, labels, graph, params0, device=DEV)
+    ctrl_readings = _c4_stream(ctrl, index, stream_q, (stream_c + 1) % cfg.n_clusters, read)[0]
+    rr_ctrl = ctrl_readings[C4_STREAM]
+    say("config4_readings", hnsw_only=hnsw_only,
+        gain=json.dumps({n: round(r - hnsw_only, 5) for n, r in readings.items()}),
+        control_gain=json.dumps({n: round(r - hnsw_only, 5) for n, r in ctrl_readings.items()}))
+    expect_rejected("config 4 fed a wrong cluster's clicks", lambda: _c4_gain(
+        f"config 4 control after {C4_STREAM} queries", rr_ctrl, hnsw_only, C4_GAIN))
+
+    say("config4_session", **session_done())
+
+    curve_out = {0: rr0, C4_STREAM: rr_1k}
+    if curve:
+        # the stream's own seconds and its evaluations', as the JAX script counts them
+        elapsed = stream_s + eval_ms * 1e-3
+        for target in cfg.checkpoints:
+            if target <= C4_STREAM:
+                continue
+            t0 = time.perf_counter()
+            loop.stream(index, stream_q, stream_c, target)
+            curve_out[target], _ = loop.eval_recall(eval_q, eval_c, eval_cands)
+            elapsed += time.perf_counter() - t0
+            say("config4_curve", queries=target, recall_at_10=curve_out[target],
+                gain=curve_out[target] - hnsw_only, elapsed_s=round(elapsed, 1))
+        late = [t for t in cfg.checkpoints if t > C4_STREAM]
+        for target in late:
+            _c4_gain(f"config 4 after {target} queries", curve_out[target], hnsw_only,
+                     C4_GAIN_LATE)
+        ok = curve_out[late[-1]] >= curve_out[late[-2]] - C4_LATE_DROP
+        say("check", name="config 4: recall holds from 10k to 100k queries",
+            recall_10k=curve_out[late[-2]], recall_100k=curve_out[late[-1]],
+            least=curve_out[late[-2]] - C4_LATE_DROP, ok=ok)
+        if not ok:
+            raise AssertionError("config 4: recall fell from 10k to 100k queries")
+    say("config4_done", curve=json.dumps({str(k): v for k, v in curve_out.items()}),
+        sona=json.dumps(dataclasses.asdict(loop.sona.stats), separators=(",", ":")),
+        seconds=round(time.perf_counter() - t_phase, 1))
+    return {"launches": {"fused_neighbor_mix": launches}, "k3": k3}
+
+
 def config5_config(d: int, heads: int) -> gated.GatedGraphTransformerConfig:
     """Config 5: dim 128, 4 heads, FFN x4, 2 layers, lam 0.5, eps 0.01,
     hysteresis band 0.05, budget nB/16, bf16 compute on f32 features."""
@@ -6919,6 +7229,8 @@ def main() -> int:
         launches[name] += n
     phase_contrastive(params, cfg, feats, graph)
     phase_sona(feats, graph, labels)
+    c4 = phase_config4()
+    launches["fused_neighbor_mix"] += c4["launches"]["fused_neighbor_mix"]
     phase_training_utils(params, cfg, gparams, feats_np, feats, graph, perm, fpad, bdg)
 
     # --- serving: the query engine, the re-rank (K8), the CSR SpMM path (K9)
@@ -6992,7 +7304,7 @@ def main() -> int:
         k3, k3_ref, k3_bound, k3_as_passed = _k3_at(params, feats, graph, heads)
         report.append(("fused_neighbor_mix", k3, k3_ref, _agree_as(torch.float32), k3_bound,
                        {"body": k3_body(heads, graph.max_degree, d),
-                        "bound_ms_as_passed": k3_as_passed, **ix["k3"]}))
+                        "bound_ms_as_passed": k3_as_passed, **ix["k3"], **c4["k3"]}))
         report += config5_report(c5, gparams, gcfg)
         report += train_report(c5, c5_halo, gparams, gcfg)
         report += serve_report(rr, sp)
@@ -7018,6 +7330,7 @@ def main() -> int:
                 raise AssertionError(f"{name} was not launched on its path")
             extra["parallel_launches_per_rank"] = par["launches_per_rank"][name]
             extra["config5_10m_launches"] = c5_10m.get(name, 0)
+            extra["config4_launches"] = c4["launches"].get(name, 0)
             lines.append({"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "launches": launches[name],
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -7040,19 +7353,28 @@ def main() -> int:
 # graph_transformer_rest sona training_utils`, `python3 chip_smoke.py
 # native index graph_store mincut`, `python3 chip_smoke.py parallel`): on
 # the 100k-node graph, for iterating on them without the whole script;
-# `training_utils` builds K1's source (its profiled layer), `index` and
-# `graph_store` K3's, `parallel` and `config5_10m` config 5's four
+# `training_utils` builds K1's source (its profiled layer), `index`,
+# `graph_store` and `config4` K3's, `parallel` and `config5_10m` config 5's
+# four; `config4` alone runs its own corpus and the whole recall curve
 PHASES_ALONE = ("solver", "graph_transformer_rest", "sona", "training_utils", "native",
-                "index", "graph_store", "mincut", "parallel", "front_ends", "config5_10m")
+                "index", "graph_store", "mincut", "parallel", "front_ends", "config5_10m",
+                "config4")
 
 
 def phases_alone(names: list[str]) -> int:
-    """Only the named phases of PHASES_ALONE, on the main path's graph."""
+    """Only the named phases of PHASES_ALONE, on the main path's graph
+    (`config4` on its own corpus)."""
     unknown = sorted(set(names) - set(PHASES_ALONE))
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {unknown}; these run alone: "
                          f"{', '.join(PHASES_ALONE)}")
     phase_device()
+    if "config4" in names:
+        say("build_sources", **{k: round(v, 1) for k, v in _lib.build(("neighbor_mix",)).items()})
+        _native_runtime()    # built before the HNSW index is timed
+        phase_config4(curve=True)
+        if len(set(names)) == 1:
+            return 0
     d, k, heads = 128, 16, 4
     feats_np, labels = bench_clusters(N_NODES, d)
     graph = build_knn_graph(feats_np, k=k, block=2048, device=DEV)

@@ -105,6 +105,7 @@ from ruvector_tpu_torch.serve.sql import SqlEngine
 from ruvector_tpu_torch.solver import BmsspSolver, TrueSolver, cg_solve, forward_push_ppr
 from ruvector_tpu_torch.sona import BaseLoRA, MicroLoRA, SonaEngine
 from ruvector_tpu_torch.sona.federated import FederatedAggregator
+from ruvector_tpu_torch.training import feedback
 from ruvector_tpu_torch.training.mining import in_batch_negatives
 from ruvector_tpu_torch.transformer import (
     Decoder,
@@ -187,7 +188,8 @@ for mod in ("native", "index.filter", "index.hnsw", "index.hyperbolic_hnsw", "in
     assert "ruvector_tpu_torch." + mod in names, mod
 for mod in ("parallel.mesh", "parallel.partition", "parallel.halo", "parallel.tp",
             "parallel.ep", "parallel.pp", "parallel.sp", "parallel.multihost", "parallel.gated",
-            "serve.distributed", "serve.sql", "serve.server", "serve.mcp", "__main__"):
+            "serve.distributed", "serve.sql", "serve.server", "serve.mcp", "__main__",
+            "training.feedback"):
     assert "ruvector_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
@@ -205,8 +207,8 @@ def test_imports_no_jax_and_no_jax_package():
     modules of the min-cut-gated transformer, the solvers, the rest of
     the graph transformers, SONA, mining, the worker, the host utilities,
     the native runtime, the indexes, the property graph, Cypher, the
-    min-cut toolkit, the parallel package and the front ends (SQL, HTTP,
-    MCP, the CLI) included."""
+    min-cut toolkit, the parallel package, the front ends (SQL, HTTP,
+    MCP, the CLI) and config 4's feedback loop included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -234,7 +236,7 @@ _FIRST_IMPORTS = ("nn.ruvector_layer", "nn.block_dense_layer", "training.train",
                   "ops.kernels.mincut_gate_block", "models.ruvector_net", "sona.engine",
                   "training.mining", "utils.cold_tier", "native", "index.vector_db",
                   "graph.cypher", "mincut", "mincut.jtree", "serve.sql", "serve.server",
-                  "serve.mcp", "__main__")
+                  "serve.mcp", "__main__", "training.feedback")
 
 
 @pytest.mark.parametrize("mod", _FIRST_IMPORTS)
@@ -323,6 +325,10 @@ _ENTRY_POINTS = {
     "RuvectorServer": lambda: RuvectorServer(port=0),
     "McpServer": lambda: McpServer(),
     "cli_main": lambda: cli_main(["info", "no-such-collection"]),
+    "FeedbackLoop": lambda: feedback.FeedbackLoop(
+        feedback.FeedbackConfig(), np.zeros((2, 4), np.float32), np.zeros(2), None, {}),
+    "feedback.build_index": lambda: feedback.build_index(
+        feedback.FeedbackConfig(dim=4), np.eye(4, dtype=np.float32)),
 }
 
 

@@ -314,6 +314,30 @@ def test_fused_neighbor_mix_fault_is_rejected(card):
                        want, K3_TOL)
 
 
+def test_fused_neighbor_mix_config4_leaf_rows(card):
+    """Config 4's held-out re-rank (training/feedback.py): 400 subgraphs of
+    40 candidate rows and 320 leaf rows, H 4, M 8, d 64 (the streaming
+    body). Every slot of a leaf row is masked and its weights are zero, so
+    its masked softmax sees only the -1e30 fill: K3 and its plain version
+    must both give exact zeros there, never NaN, and agree within the
+    float32 limits elsewhere."""
+    queries, ef, m, d, heads = 400, 40, 8, 64, 4
+    rows = ef + ef * m
+    n = queries * rows
+    assert k3_body(heads, m, d) == "streaming"
+    u, bias, nbr, mask, wnorm = _mix_inputs(card, n, heads, m, d, seed=4)
+    leaf = torch.arange(n, device=card) % rows >= ef
+    mask[leaf] = 0.0
+    wnorm[leaf] = 0.0
+    scale = (d // heads) ** -0.5
+    got = fused_neighbor_mix(u, bias, nbr, mask, wnorm, heads=heads, scale=scale)
+    want = fused_neighbor_mix_reference(u, bias, nbr, mask, wnorm, heads=heads, scale=scale)
+    assert launch_counts()["fused_neighbor_mix"] == 1
+    zeros = torch.zeros_like(got[leaf])
+    assert torch.equal(got[leaf], zeros) and torch.equal(want[leaf], zeros)
+    assert _within(got, want, K3_TOL)
+
+
 @pytest.mark.parametrize("heads", [1, 4, 16])
 def test_fused_neighbor_mix_kernel(card, heads):
     g = torch.Generator().manual_seed(heads)
