@@ -61,6 +61,24 @@ card:
   * config 5's layers on a layout with a halo (120,000 nodes, 240-node
     partitions, B % 32 != 0): init, steady and drift steps and one train
     step, against the plain route.
+  * the gate under sustained drift with a hard staleness bound
+    (`[gate_staleness]`, benchmarks/gate_staleness.py,
+    GATE_STALENESS_r05.json): 249,856 nodes in clusters of 128 (976
+    partitions of 256), config 5's model with max_gate_age; rows age 0 and
+    8 at a budget of 61 and age 4 at 122, 24 steps of 0.05 N(0,1) drift
+    each, every step held against a fresh gate_state_init; the bounds, the
+    divergence falling as the bound tightens, the guard refusing age 4 at
+    15, and an escalating step (K7 twice a layer) against the same step
+    with K7's plain version, bit for bit.
+  * the RuvectorLayer at the JAX scale sweep's sizes (`[scale_sweep]`,
+    benchmarks/scale_sweep_r03.py): 99,968, 999,936 and 10,000,000 nodes
+    in clusters of 128 made on the card, 256-node blocks without a halo
+    (391, 3,906 and 39,063, the last ragged at 100k and 10M), seed-0
+    weights, bf16 compute, bf16 features, edge table and IO at 10M; the
+    fused layer (K1) timed, and its output held against K1's plain
+    version over every block, 1,024 blocks at a time; K1 alone at 10M.
+    Alone, `scale_sweep_standup` splits the stand-up as the JAX sweep does
+    (host generation, layout, transfer, first forward).
   * the RuvectorLayer's contrastive train step (Adam) on the 100k-node
     graph.
   * serving (`[serve]`): the query engine over the same 100k-node corpus
@@ -91,11 +109,11 @@ card:
     5's parameters, and the cold tier: the features on disk streamed in
     hyperbatches of 4,096, the hotset and the mmap store.
   * the min-cut-gated transformer (`[transformer]`, no kernel) at
-    benchmarks/spec_at_size.py's width (12 layers x 1024 hidden x 16
-    heads, 152M parameters): early-exit training, greedy and speculative
-    batched decoding, the gate's tier programs on the int8 route, the
-    tiered KV cache through every tier and the subsystems, each against
-    the CPU.
+    benchmarks/spec_at_size.py's width (1024 hidden x 16 heads; 6 of its
+    12 layers here, all 12 in benchmarks/transformer_torch.py): early-exit
+    training, greedy and speculative batched decoding, the gate's tier
+    programs on the int8 route, the tiered KV cache through every tier and
+    the subsystems, each against the CPU.
   * the port's native runtime (`[native]`): its g++ build, config 5's
     layout by the device fill and the Python route (equal),
     GraphSAGE's fanout draws and the min-cut gate by the native and the
@@ -165,6 +183,8 @@ package beside this script.
     python3 chip_smoke.py front_ends                       (that phase alone)
     python3 chip_smoke.py config5_10m                      (that phase alone)
     python3 chip_smoke.py config4                          (that phase alone: the curve)
+    python3 chip_smoke.py scale_sweep_standup              (that phase alone)
+    python3 chip_smoke.py scale_sweep gate_staleness       (those phases alone)
 
 The kernel-free phases on the bench graph (`[gnn_family]`,
 `[attention_rest]`, `[solver]`, `[graph_transformer_rest]`) and
@@ -197,6 +217,7 @@ import time
 import types
 import urllib.error
 import urllib.request
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -338,6 +359,7 @@ from ruvector_tpu_torch.models import (  # noqa: E402
 from ruvector_tpu_torch.models.message_passing import propagate  # noqa: E402
 from ruvector_tpu_torch.nn.block_dense_layer import (  # noqa: E402
     fold_layer_params,
+    fused_layer_inputs,
     ruvector_layer_apply_block_dense,
     ruvector_layer_apply_block_dense_fused,
 )
@@ -733,6 +755,34 @@ C5_10M_LOSS_RTOL, C5_10M_GRAD_TOL = 3e-5, 6e-5
 # (about 1e-2 max and 1e-3 mean of outputs of order 1-5) the two may
 # differ by two bf16 steps of the largest output (2^-7)
 C5_10M_ROUTE_TOL = (2e-2, 2e-3)
+# the JAX package's scale sweep (benchmarks/scale_sweep_r03.py:37-44,91-100,
+# SCALE_BENCH_r03.json): one RuvectorLayer over clusters of 128 with the
+# exact within-cluster kNN (k=16) in uniform 256-node blocks, so that
+# every block holds whole clusters and T == B (no halo); d=128, 4 heads,
+# bf16 compute, seed-0 weights. Above SW_BF16_FROM nodes the features, the
+# edge table and the layer's IO are bf16 (the 10M row: 39,063 blocks, the
+# last holding 128 real rows and 128 pad rows; 99,968 nodes also end on a
+# ragged block). K1 is held against its plain version over every block,
+# SW_SLICE blocks at a time: over all 39,063 at once the plain version's
+# [nB, H, B, T] float32 scores alone would take ~41 GB
+SW_NODES, SW_BLOCKS = (99_968, 999_936, 10_000_000), (391, 3906, 39_063)
+SW_BF16_FROM, SW_BLOCK, SW_SLICE = 2_000_000, 256, 1024
+# the pad rows (no edge: the LayerNorm of the message bias) against the
+# plain version's, relative to max(1, |plain|): the float32 limit, or one
+# bf16 step where the output is bf16 (both sides round a float32 LayerNorm
+# whose sums are ordered differently)
+SW_PAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+# the gate under sustained drift (benchmarks/gate_staleness.py:51-131,
+# GATE_STALENESS_r05.json): 249,856 nodes in clusters of 128, 976 halo-free
+# partitions of 256 (float32 layout), config 5's model (seed 0) with
+# max_gate_age and max_resolve_frac = budget / nB; GS_STEPS steps of
+# features += GS_SIGMA N(0, 1), the noise from a card generator seeded
+# GS_NOISE_SEED for every row (each row sees the same draws), each step
+# held against a fresh gate_state_init. Rows (max_gate_age, nB // budget):
+# age 0 and 8 at nB // 16 (61), age 4 at nB // 8 (122); GS_INFEASIBLE, age
+# 4 at nB // 64 (15), must be refused by the feasibility guard
+GS_NODES, GS_STEPS, GS_SIGMA, GS_NOISE_SEED = 249_856, 24, 0.05, 7
+GS_ROWS, GS_INFEASIBLE = ((0, 16), (8, 16), (4, 8)), (4, 64)
 # config 5's layers on a layout with a halo: clusters of 120, two per
 # 240-node partition (B % 32 = 16), k=16 of which 14 within the cluster
 H_NODES, H_CLUSTER, H_BLOCK, H_K, H_K_IN = 120_000, 120, 240, 16, 14
@@ -802,6 +852,10 @@ QZ_CHUNKS, QZ_CHUNK, QZ_HOT, QZ_HAMMER = 1024, 128, 64, 64
 TF_CFG = dict(seq_len_max=512, hidden=1024, heads=16, layers=12, vocab=512, logits=512,
               layers_degraded=2, seq_len_degraded=64, seq_len_safe=32)
 TF_DRAFT, TF_GAMMA, TF_BATCH, TF_PROMPT, TF_NEW = 2, 6, 4, 9, 128
+# the whole script runs the phase at half the depth (the width stays), to
+# keep the script inside its time limit; alone it runs at TF_CFG's full
+# depth (benchmarks/transformer_torch.py)
+TF_MAIN_LAYERS = 6
 TF_TRAIN = dict(steps=250, batch=16, seq_len=48, lr=1e-3, seed=0)
 TF_HOT, TF_TIER_TOKENS, TF_CACHE_EXTRA, TF_MAMBA_STEPS = 256, 512, 16, 512
 TF_INT8_TOL = 5e-2
@@ -2195,6 +2249,363 @@ def phase_config5_10m(gparams, gcfg, d: int) -> dict:
     launches = collections.Counter()
     for c in (init_counts, steady_counts, drift_counts, train_counts):
         launches.update(c)
+    return dict(launches)
+
+
+def k1_ops(cdt: torch.dtype, heads: int, d: int, n_edges: int, rows: int) -> dict:
+    """K1's operations by type for `bound`: the dense tile's products over
+    the real edges in the compute type, and the epilogue's float32 products
+    (float32 grade on the tensor cores, 3xTF32, in the tensor-core body;
+    float32 FMA in the other)."""
+    epilogue = "tf32x3" if k1_body(cdt) == "tensor_core" else torch.float32
+    return {cdt: 2 * (2 * heads + 1) * d * n_edges, epilogue: 2 * (2 * heads + 7) * d * d * rows}
+
+
+def _sw_layout(n: int, dt: torch.dtype, want_nb: int, idx, ew):
+    """The sweep's block-dense layout of (idx, ew) by the device fill, in
+    `dt`; fails unless it has want_nb blocks of SW_BLOCK and no halo."""
+    bdg = build_block_dense(idx, np.ones((n, C5_K), np.float32), ew, block=SW_BLOCK, dtype=dt,
+                            device=DEV)
+    if (bdg.n_blocks, bdg.block, bdg.table) != (want_nb, SW_BLOCK, SW_BLOCK) or (
+            bdg.wdense.dtype != dt):
+        raise AssertionError(f"scale sweep at {n} nodes: nB={bdg.n_blocks} B={bdg.block} "
+                             f"T={bdg.table} {bdg.wdense.dtype}, not {want_nb} halo-free "
+                             f"blocks of {SW_BLOCK} in {dt}")
+    return bdg
+
+
+def _k1_against_plain(name: str, out, params, cfg, fpad, bdg, io) -> dict:
+    """The layer's output [nB*B, D] against K1's plain version on the
+    layer's own inputs, SW_SLICE blocks at a time: every row within the
+    bf16 limits (TOL), the pad rows within SW_PAD_TOL of max(1, |plain|)."""
+    L_tab, msgf = fused_layer_inputs(params, cfg, fpad, bdg, io)
+    folded = fold_layer_params(params, cfg)
+    nb, b, d = msgf.shape
+    outb = out.reshape(nb, b, d)
+    err_max = err_sum = pad_err = 0.0
+    pad_rows, pad_equal = 0, True
+    for s in range(0, nb, SW_SLICE):
+        e = min(nb, s + SW_SLICE)
+        want = block_dense_layer_fused_reference(L_tab[s:e], msgf[s:e], bdg.wdense[s:e].float(),
+                                                 folded, dropout=cfg.dropout, eps=cfg.eps)
+        got = outb[s:e]
+        err = (got.float() - want.float()).abs()
+        err_max, err_sum = max(err_max, float(err.max())), err_sum + float(err.sum())
+        pad = bdg.node_pad[s:e] == 0
+        if bool(pad.any()):
+            rel = err[pad] / torch.clamp(want.float()[pad].abs(), min=1.0)
+            pad_err = max(pad_err, float(rel.max()))
+            pad_rows += int(pad.sum())
+            pad_equal = pad_equal and torch.equal(got[pad], want[pad])
+        del want, err
+    err_mean = err_sum / out.numel()
+    tol_max, tol_mean = TOL[torch.bfloat16]
+    pad_tol = SW_PAD_TOL[out.dtype]
+    ok = err_max <= tol_max and err_mean <= tol_mean and pad_err <= pad_tol
+    say("agree", name=name, slices=-(-nb // SW_SLICE), slice_blocks=SW_SLICE,
+        max_abs_err=err_max, mean_abs_err=err_mean, tol_max=tol_max, tol_mean=tol_mean,
+        pad_rows=pad_rows, pad_rows_max_rel_err=pad_err, pad_rows_tol=pad_tol,
+        pad_rows_bitwise_equal=pad_equal, ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: disagrees with its reference")
+    return {"L_tab": L_tab, "msgf": msgf, "folded": folded, "max_abs_err": err_max}
+
+
+def _k1_at_10m(params, cfg, bdg, out, inputs: dict) -> dict:
+    """K1 alone on the largest row's inputs, as the layer passes them (the
+    bf16 table and msg, wd widened to float32): its output against the
+    layer's (bit for bit), its times, its bound, its plain version's time
+    and its own on the last slice of SW_SLICE blocks, and the float32 copy
+    of the bf16 edge table that the layer makes on every call."""
+    L_tab, msgf, folded = inputs["L_tab"], inputs["msgf"], inputs["folded"]
+    nb, b, d = msgf.shape
+    widen_ms = time_ms(lambda: bdg.wdense.float(), iters=5)
+    wd32 = bdg.wdense.float()
+    k1 = lambda: block_dense_layer_fused(L_tab, msgf, wd32, folded,  # noqa: E731
+                                         dropout=cfg.dropout, eps=cfg.eps)
+    if not torch.equal(k1().reshape(out.shape), out):
+        raise AssertionError("scale sweep: K1 alone differs from the layer's K1")
+    s = nb - SW_SLICE
+    last = (L_tab[s:], msgf[s:], wd32[s:], folded)
+    ops = k1_ops(cfg.cdt, cfg.heads, d, int((bdg.wdense > 0).sum()), nb * b)
+    n_bytes = nbytes(L_tab, msgf, wd32, *folded.values()) + nbytes(out)
+    bound_ms, bound_by = bound(n_bytes, ops)
+    fields = {
+        "ms_10m": time_ms(k1, iters=5),
+        "kernel_ms_10m": kernel_ms(k1, iters=3, runs=3),
+        "bound_ms_10m": bound_ms, "bound_by_10m": bound_by,
+        "bound_bytes_10m": n_bytes,
+        "bound_ops_10m": {str(k).replace("torch.", ""): v for k, v in ops.items()},
+        "slice_blocks_10m": SW_SLICE,
+        "ms_10m_slice": time_ms(lambda: block_dense_layer_fused(
+            *last, dropout=cfg.dropout, eps=cfg.eps), iters=5),
+        "plain_ms_10m_slice": time_ms(lambda: block_dense_layer_fused_reference(
+            *last, dropout=cfg.dropout, eps=cfg.eps), iters=3, warmup=1),
+        "wd_widen_ms_10m": widen_ms,
+        "wd_widen_gb_10m": round(nbytes(wd32) / 1e9, 3),
+    }
+    del wd32
+    return fields
+
+
+def phase_scale_sweep(params, cfg, d: int) -> dict:
+    """The JAX scale sweep's protocol (SW_NODES) on the card, through
+    ruvector_layer_apply_block_dense_fused (K1) with seed-0 weights and bf16
+    compute: for each size the graph made on the card (cluster_graph), the
+    layout by the device fill (SW_BLOCKS blocks, T == B), the first forward
+    (io_dtype bf16 above SW_BF16_FROM), the layer's median of 10 (CUDA
+    events) and its peak memory, then the first forward's output against
+    K1's plain version over every block (_k1_against_plain); at the largest
+    size K1 alone (_k1_at_10m). Returns K1's launches and its 10M fields."""
+    t_phase = time.perf_counter()
+    launches, k1_10m = 0, {}
+    for n, want_nb in zip(SW_NODES, SW_BLOCKS):
+        big = n > SW_BF16_FROM
+        dt = torch.bfloat16 if big else torch.float32
+        io = torch.bfloat16 if big else None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.perf_counter()
+        feats, idx, ew = cluster_graph(n, d, C5_K)
+        feats = feats.to(dt)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        bdg = _sw_layout(n, dt, want_nb, idx.cpu().numpy(), ew.cpu().numpy())
+        del idx, ew
+        fpad = bdg.pad_features(feats)
+        del feats
+        torch.cuda.synchronize()
+        layout_s = time.perf_counter() - t0
+        nb, b = bdg.n_blocks, bdg.block
+        with torch.no_grad():
+            layer = lambda: ruvector_layer_apply_block_dense_fused(  # noqa: E731
+                params, cfg, fpad, bdg, io_dtype=io)
+            (out, first_ms), counts = counted(["block_dense_layer_fused"],
+                                              lambda: _synced_ms(layer))
+            launches += counts["block_dense_layer_fused"]
+            end_to_end_s = time.perf_counter() - t_start
+            if (out.shape != (nb * b, d) or out.dtype != dt
+                    or not bool(torch.isfinite(out.float()).all())):
+                raise AssertionError(f"scale sweep at {n} nodes: output {tuple(out.shape)} "
+                                     f"{out.dtype} is not finite [{nb * b}, {d}] {dt}")
+            layer_ms = time_ms(layer, iters=10)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            inputs = _k1_against_plain(f"scale sweep at {n} nodes: the layer's K1 vs its plain "
+                                       f"version", out, params, cfg, fpad, bdg, io)
+            if n == SW_NODES[-1]:
+                k1_10m = _k1_at_10m(params, cfg, bdg, out, inputs)
+        say("scale_sweep", nodes=n, nB=nb, B=b, T=bdg.table, io=str(dt).replace("torch.", ""),
+            launches=counts["block_dense_layer_fused"], gen_s=round(gen_s, 3),
+            layout_s=round(layout_s, 3), first_forward_s=round(first_ms / 1e3, 3),
+            end_to_end_s=round(end_to_end_s, 3), layer_ms=layer_ms,
+            edges_per_s=n * C5_K / (layer_ms * 1e-3), peak_mem_gb=round(peak_gb, 2),
+            k1_max_abs_err=inputs["max_abs_err"])
+        del out, inputs, fpad, bdg
+    torch.cuda.empty_cache()
+    say("scale_sweep_k1", **k1_10m)
+    say("scale_sweep_done", launches=launches, seconds=round(time.perf_counter() - t_phase, 1))
+    return {"launches": {"block_dense_layer_fused": launches}, "k1": k1_10m}
+
+
+def phase_scale_sweep_standup(params, cfg, d: int) -> None:
+    """The JAX sweep's stand-up split (scale_sweep_r03.py:69-100) at each of
+    SW_NODES: gen_s, the host graph (native.gen_cluster_knn, the JAX
+    package's C++); build_s, the layout from the host arrays by the device
+    fill (the port builds no layout by the native host fill, whose table
+    differs in the last bit; ROADMAP "Documented differences"); transfer_s,
+    the features to the card (bf16 above SW_BF16_FROM, cast on the host)
+    and padded; the first forward's seconds (K1 built beforehand); and
+    end_to_end_s, from nothing to the first forward's output."""
+    for n, want_nb in zip(SW_NODES, SW_BLOCKS):
+        big = n > SW_BF16_FROM
+        dt = torch.bfloat16 if big else torch.float32
+        torch.cuda.empty_cache()
+        t_start = time.perf_counter()
+        feats, idx, ew = native.gen_cluster_knn(n, d, C5_K, C5_CLUSTER, seed=0)
+        gen_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        bdg = _sw_layout(n, dt, want_nb, idx, ew)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        del idx, ew
+        t0 = time.perf_counter()
+        fpad = bdg.pad_features(torch.from_numpy(feats).to(dt).to(DEV))
+        torch.cuda.synchronize()
+        transfer_s = time.perf_counter() - t0
+        del feats
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out = ruvector_layer_apply_block_dense_fused(params, cfg, fpad, bdg,
+                                                         io_dtype=torch.bfloat16 if big else None)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        end_to_end_s = time.perf_counter() - t_start
+        if out.shape != fpad.shape or not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"scale sweep stand-up at {n} nodes: a non-finite output")
+        say("scale_sweep_standup", nodes=n, nB=bdg.n_blocks, io=str(dt).replace("torch.", ""),
+            gen_s=round(gen_s, 3), build_s=round(build_s, 3), transfer_s=round(transfer_s, 3),
+            first_forward_s=round(first_s, 3), end_to_end_s=round(end_to_end_s, 3))
+        del out, fpad, bdg
+
+
+def _popcount(words: torch.Tensor) -> int:
+    """Set bits of an integer tensor (torch has no popcount): a byte table."""
+    table = torch.tensor([bin(i).count("1") for i in range(256)], device=words.device)
+    return int(table[words.contiguous().view(torch.uint8).long()].sum())
+
+
+@contextlib.contextmanager
+def plain_gate_solve():
+    """The step's gate solve on K7's plain version (mincut_gate_block_from_x_reference),
+    everything else on the kernel route."""
+    saved = gated.mincut_gate_block_from_x
+    gated.mincut_gate_block_from_x = mincut_gate_block_from_x_reference
+    try:
+        yield
+    finally:
+        gated.mincut_gate_block_from_x = saved
+
+
+def _gs_row(gparams, gcfg, fpad, bdg, budget: int) -> dict:
+    """One row of the staleness protocol: gate_state_init, then GS_STEPS
+    drift steps, each the budgeted step, a fresh gate_state_init and a step
+    from the fresh state. Records the output divergence, the mask bits
+    that disagree, the largest age, the re-solve count and K7's launches
+    of each budgeted step, and the first step on which K7 ran twice in
+    every layer (its state before, its features and its result)."""
+    step = gated.gated_graph_transformer_step
+    layers = gcfg.num_layers
+    noise = torch.Generator(device=DEV).manual_seed(GS_NOISE_SEED)
+    st = gated.gate_state_init(gparams, gcfg, fpad, bdg)
+    f = fpad
+    rec = collections.defaultdict(list)
+    escalating = None
+    for t in range(GS_STEPS):
+        f = f + GS_SIGMA * torch.randn(f.shape, generator=noise, device=DEV)
+        prev = st
+        k7 = kernels.launch_counts()["mincut_gate_block_from_x"]
+        (out_b, st, nres), ms = _synced_ms(lambda: step(gparams, gcfg, f, bdg, prev,
+                                                        max_resolve=budget))
+        k7 = kernels.launch_counts()["mincut_gate_block_from_x"] - k7
+        fresh, init_ms = _synced_ms(lambda: gated.gate_state_init(gparams, gcfg, f, bdg))
+        out_f, _, _ = step(gparams, gcfg, f, bdg, fresh, max_resolve=budget)
+        rec["div"].append(float(torch.linalg.norm((out_b - out_f).double())
+                                / (torch.linalg.norm(out_f.double()) + 1e-9)))
+        rec["mask_dis"].append(_popcount(st["keep"] ^ fresh["keep"]) / (st["keep"].numel() * 32))
+        rec["age"].append(int(st["age"].max()))
+        rec["resolved"].append(nres)
+        rec["k7"].append(k7)
+        rec["step_ms"].append(ms)
+        rec["init_ms"].append(init_ms)
+        if escalating is None and k7 == 2 * layers:
+            escalating = (t, prev, f, (out_b, st, nres))
+        del out_f, fresh
+    return {"rec": rec, "escalating": escalating}
+
+
+def _gs_escalation(gparams, gcfg, bdg, budget: int, escalating, row: str) -> None:
+    """An escalating step again from its state: the kernel route (K7 twice
+    in every layer) must give the loop's result, and the gate solve on
+    K7's plain version the same masks, ages, signatures, re-solve count and
+    output, bit for bit; a control: the plain route's masks with one bit
+    flipped must fail that check."""
+    t, prev, f, result = escalating
+    layers = gcfg.num_layers
+    run = lambda: gated.gated_graph_transformer_step(gparams, gcfg, f, bdg, prev,  # noqa: E731
+                                                     max_resolve=budget)
+    again, counts = counted(["mincut_gate_block_from_x"], run)
+    if counts["mincut_gate_block_from_x"] != 2 * layers:
+        raise AssertionError(f"gate staleness {row} step {t}: K7 launched "
+                             f"{counts['mincut_gate_block_from_x']} times, not twice a layer")
+    name = f"gate staleness {row} escalating step {t}"
+    equal_parts(f"{name}: kernel route, again", _step_parts(again), _step_parts(result))
+    with plain_gate_solve():
+        plain, counts = counted([], run)
+    if counts["mincut_gate_block_from_x"]:
+        raise AssertionError(f"{name}: the plain gate solve launched K7")
+    got, want = _step_parts(again), _step_parts(plain)
+    equal_parts(f"{name}: kernel route vs K7's plain version", got, want)
+    flipped = dict(want, keep=want["keep"].clone())
+    flipped["keep"].view(-1)[0] ^= 1
+    expect_rejected(f"{name}: masks with one bit flipped", lambda: equal_parts(
+        f"control: {name}, plain route's masks with one bit flipped", got, flipped))
+
+
+def phase_gate_staleness(gparams, gcfg, d: int) -> dict:
+    """The JAX package's gate-staleness protocol (GS_*) on the card, through
+    gate_state_init and gated_graph_transformer_step on the kernel route
+    (K6c, K7, K4b, K4a), for each row of GS_ROWS. Hard checks: the bounded
+    rows never exceed their age, the unbounded row passes 8, the median
+    divergence falls from age 0 to age 8 to age 4, the guard refuses
+    GS_INFEASIBLE, and an escalating step of the age-8 row equals its
+    run with K7's plain version (_gs_escalation). Returns the phase's
+    launches by kernel (the comparison runs excluded)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    feats, idx, ew = cluster_graph(GS_NODES, d, C5_K)
+    bdg = build_block_dense(idx.cpu().numpy(), np.ones((GS_NODES, C5_K), np.float32),
+                            ew.cpu().numpy(), block=C5_BLOCK, device=DEV)
+    del idx, ew
+    fpad = bdg.pad_features(feats)
+    del feats
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    nb, b = bdg.n_blocks, bdg.block
+    if bdg.table != b or nb * b != GS_NODES:
+        raise AssertionError(f"gate staleness: nB={nb} B={b} T={bdg.table} is not halo-free")
+    launches = collections.Counter()
+    medians = {}
+    with torch.no_grad():
+        for age, share in GS_ROWS:
+            budget = max(1, nb // share)
+            cfg = dataclasses.replace(gcfg, max_gate_age=age, max_resolve_frac=budget / nb)
+            row = f"age{age}_budget{budget}"
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res, counts = counted(C5_KERNELS, lambda: _gs_row(gparams, cfg, fpad, bdg,
+                                                                  budget))
+            if caught:
+                raise AssertionError(f"gate staleness {row}: warned {caught[0].message}")
+            launches.update(counts)
+            rec = res["rec"]
+            medians[age] = statistics.median(rec["div"])
+            say("gate_staleness", row=row, steps=GS_STEPS, sigma=GS_SIGMA, budget=budget,
+                rel_output_divergence_median=medians[age],
+                rel_output_divergence_p100=max(rec["div"]),
+                mask_disagreement_frac_median=statistics.median(rec["mask_dis"]),
+                max_age_seen=max(rec["age"]), resolved_per_step=rec["resolved"],
+                k7_per_step=rec["k7"], step_ms=statistics.median(rec["step_ms"]),
+                init_ms=statistics.median(rec["init_ms"]), launches=_nonzero(counts))
+            if age and max(rec["age"]) > age:
+                raise AssertionError(f"gate staleness {row}: age {max(rec['age'])} past the "
+                                     f"bound {age}")
+            if not age and max(rec["age"]) <= 8:
+                raise AssertionError(f"gate staleness {row}: ages stay within 8 "
+                                     f"({max(rec['age'])}) without the bound")
+            if age == 8:
+                if res["escalating"] is None:
+                    raise AssertionError(f"gate staleness {row}: no step ran K7 twice in "
+                                         f"every layer {rec['k7']}")
+                _gs_escalation(gparams, cfg, bdg, budget, res["escalating"], row)
+            del res
+    ages = [age for age, _ in GS_ROWS]
+    if not all(medians[a] > medians[c] for a, c in zip(ages, ages[1:])):
+        raise AssertionError(f"gate staleness: the median divergence does not fall from "
+                             f"age 0 to 8 to 4: {medians}")
+    age, share = GS_INFEASIBLE
+    bad = max(1, nb // share)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        feasible = gated.check_gate_age_feasibility(
+            dataclasses.replace(gcfg, max_gate_age=age), nb, bad)
+    say("gate_staleness", row=f"INFEASIBLE_age{age}_budget{bad}", feasible=feasible,
+        guard_warned=bool(caught),
+        guard_message=str(caught[0].message)[:160] if caught else None)
+    if feasible or not caught:
+        raise AssertionError(f"gate staleness: the guard accepted age {age} at budget {bad}")
+    say("gate_staleness_done", nodes=GS_NODES, nB=nb, B=b, setup_s=round(setup_s, 3),
+        launches=dict(launches), seconds=round(time.perf_counter() - t_phase, 1))
     return dict(launches)
 
 
@@ -4669,7 +5080,8 @@ def _tf_tiers(cfg) -> dict:
     model_c = MincutGatedTransformer(cfg, policy, wq_c, device="cpu")
     # tests/test_transformer.py:228-230's routing: 15% of the tokens (the
     # most recent) compute, fewer than the last token's receptive field of
-    # 12 x 15 positions, so the logits change (the default 50% would not)
+    # layers x 15 positions (at 6 layers or more), so the logits change
+    # (the default 50% would not)
     mod = ModRoutingConfig(layer_capacity_ratio=0.15, min_tokens_per_layer=2,
                            adaptive_capacity=False)
     sparse = MincutGatedTransformer(cfg, policy, wq, sparsity_config=SparsityConfig(),
@@ -4847,10 +5259,11 @@ def _tf_subsystems(cache0: KVCacheState, cc: KVCacheConfig) -> dict:
     return fields
 
 
-def phase_transformer() -> None:
+def phase_transformer(layers: int = TF_CFG["layers"]) -> None:
     """The min-cut-gated transformer (`[transformer]`, no kernel) at
-    benchmarks/spec_at_size.py:59-70's full width (12 layers, hidden 1024,
-    16 heads, vocab and logits 512; nothing cut): early-exit training (250
+    benchmarks/spec_at_size.py:59-70's full width (hidden 1024, 16 heads,
+    vocab and logits 512) and `layers` deep (its 12 by default; the whole
+    script passes TF_MAIN_LAYERS): early-exit training (250
     Adam steps, batch 16), greedy and speculative batched decoding of 4
     prompts (128 new tokens, gamma 6, a 2-layer draft), the tier programs
     on the int8 route, the tiered KV cache through every tier, and the
@@ -4861,7 +5274,7 @@ def phase_transformer() -> None:
     beside it."""
     t_phase = time.perf_counter()
     before = kernels.launch_counts()
-    cfg = TransformerConfig(**TF_CFG)
+    cfg = TransformerConfig(**dict(TF_CFG, layers=layers))
     weights = _tf_train(cfg)
     ctx = _tf_decode(weights, cfg)
     _tf_tiers(cfg)
@@ -7214,6 +7627,10 @@ def main() -> int:
     c5_halo = phase_config5_halo(gparams, gcfg)
     phase_halo_signature_control(c5_halo, gparams, gcfg)
     launches["gated_block_layer"] += train_launches["gated_block_layer"]
+    # --- the gate under sustained drift with max_gate_age ----------------------
+    gs = phase_gate_staleness(gparams, gcfg, d)
+    for name in C5_KERNELS:
+        launches[name] += gs[name]
     for name in ("gated_block_attention_fwd", "gated_block_attention_bwd",
                  "block_gate_signature_x"):
         launches[name] = train_launches.get(name, 0) + c5_halo["launches"][name]
@@ -7224,6 +7641,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     c5_10m = phase_config5_10m(gparams, gcfg, d)
     torch.cuda.empty_cache()
+    # --- the RuvectorLayer at the JAX scale sweep's sizes, up to 10M nodes ------
+    sw = phase_scale_sweep(params, cfg, d)
+    launches["block_dense_layer_fused"] += sw["launches"]["block_dense_layer_fused"]
     c5 = c5_on(c5, DEV)
     for name, n in c5_10m.items():
         launches[name] += n
@@ -7249,7 +7669,7 @@ def main() -> int:
     phase_front_ends(feats_np, labels, d, ix.pop("db"), full=FE_FULL_IN_MAIN)
     peak_before = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    phase_transformer()
+    phase_transformer(TF_MAIN_LAYERS)
     say("transformer_memory", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
     par = phase_parallel(feats_np, graph, d, heads, c5)
 
@@ -7257,10 +7677,8 @@ def main() -> int:
     report = []
     with torch.no_grad():
         # K1: the fused layer's own inputs
-        msg = linear_apply(params["w_msg"], fpad)
-        msgf = msg.reshape(bdg.n_blocks, bdg.block, d)
-        halo = msg.to(cfg.cdt)[bdg.local_ids[:, bdg.block:].long()]
-        L_tab = torch.cat([msgf.to(cfg.cdt), halo], dim=1).contiguous()
+        L_tab, msgf = fused_layer_inputs(params, cfg, fpad, bdg)
+        msg = msgf.reshape(-1, d)
         folded = fold_layer_params(params, cfg)
         wd = bdg.wdense
         k1 = lambda: block_dense_layer_fused(L_tab, msgf, wd, folded, dropout=0.0,  # noqa: E731
@@ -7269,17 +7687,13 @@ def main() -> int:
             L_tab, msgf, wd, folded, dropout=0.0, eps=cfg.eps)
         n_edges = int((wd > 0).sum())
         rows = bdg.n_blocks * bdg.block
-        k1b = k1_body(cfg.cdt)
-        # the epilogue's float32 products: float32 grade on the tensor
-        # cores (3xTF32) in the tensor-core body, float32 FMA in the other
-        ops = {cfg.cdt: 2 * (2 * heads + 1) * d * n_edges,
-               "tf32x3" if k1b == "tensor_core" else torch.float32:
-                   2 * (2 * heads + 7) * d * d * rows}
         report.append(("block_dense_layer_fused", k1, k1_ref, _agree_as(cfg.cdt),
-                       bound(nbytes(L_tab, msgf, wd, *folded.values()) + nbytes(msgf), ops),
-                       {"body": k1b, "f32_grade_max_abs_err": k1_f32_grade_err,
+                       bound(nbytes(L_tab, msgf, wd, *folded.values()) + nbytes(msgf),
+                             k1_ops(cfg.cdt, heads, d, n_edges, rows)),
+                       {"body": k1_body(cfg.cdt), "f32_grade_max_abs_err": k1_f32_grade_err,
                         "f32_grade_check": "one edge a row, wd = 1, bf16-valued table, "
-                                           "B=504, T=1024, limits 1e-4 / 1e-5"}))
+                                           "B=504, T=1024, limits 1e-4 / 1e-5",
+                        **sw["k1"]}))
 
         # K2: the use_pallas block-dense route's inputs
         hd = d // heads
@@ -7331,6 +7745,8 @@ def main() -> int:
             extra["parallel_launches_per_rank"] = par["launches_per_rank"][name]
             extra["config5_10m_launches"] = c5_10m.get(name, 0)
             extra["config4_launches"] = c4["launches"].get(name, 0)
+            extra["scale_sweep_launches"] = sw["launches"].get(name, 0)
+            extra["gate_staleness_launches"] = gs.get(name, 0)
             lines.append({"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "launches": launches[name],
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -7354,11 +7770,15 @@ def main() -> int:
 # native index graph_store mincut`, `python3 chip_smoke.py parallel`): on
 # the 100k-node graph, for iterating on them without the whole script;
 # `training_utils` builds K1's source (its profiled layer), `index`,
-# `graph_store` and `config4` K3's, `parallel` and `config5_10m` config 5's
-# four; `config4` alone runs its own corpus and the whole recall curve
+# `graph_store` and `config4` K3's, `parallel`, `config5_10m` and
+# `gate_staleness` config 5's four, `scale_sweep` and `scale_sweep_standup`
+# K1's; `config4` alone runs its own corpus and the whole recall curve;
+# `scale_sweep`, `scale_sweep_standup` (`python3 chip_smoke.py
+# scale_sweep_standup`: the host generation at 10M nodes takes about a
+# minute, so it runs only alone) and `gate_staleness` make their own graphs
 PHASES_ALONE = ("solver", "graph_transformer_rest", "sona", "training_utils", "native",
                 "index", "graph_store", "mincut", "parallel", "front_ends", "config5_10m",
-                "config4")
+                "config4", "scale_sweep", "scale_sweep_standup", "gate_staleness")
 
 
 def phases_alone(names: list[str]) -> int:
@@ -7373,9 +7793,23 @@ def phases_alone(names: list[str]) -> int:
         say("build_sources", **{k: round(v, 1) for k, v in _lib.build(("neighbor_mix",)).items()})
         _native_runtime()    # built before the HNSW index is timed
         phase_config4(curve=True)
-        if len(set(names)) == 1:
-            return 0
     d, k, heads = 128, 16, 4
+    if {"scale_sweep", "scale_sweep_standup"} & set(names):
+        say("build_sources", **{k: round(v, 1) for k, v in _lib.build(("block_dense_attn",)).items()})
+        _native_runtime()
+        cfg = RuvectorLayerConfig(d, d, heads=heads, compute_dtype="bfloat16")
+        params = ruvector_layer_init(0, cfg, device=DEV)
+        if "scale_sweep" in names:
+            phase_scale_sweep(params, cfg, d)
+        if "scale_sweep_standup" in names:
+            phase_scale_sweep_standup(params, cfg, d)
+    if "gate_staleness" in names:
+        say("build_sources", **{k: round(v, 1) for k, v in _lib.build(C5_SOURCES).items()})
+        _native_runtime()
+        gcfg = config5_config(d, heads)
+        phase_gate_staleness(gated.gated_graph_transformer_init(0, gcfg, device=DEV), gcfg, d)
+    if not set(names) - {"config4", "scale_sweep", "scale_sweep_standup", "gate_staleness"}:
+        return 0
     feats_np, labels = bench_clusters(N_NODES, d)
     graph = build_knn_graph(feats_np, k=k, block=2048, device=DEV)
     feats = torch.from_numpy(feats_np).to(DEV)

@@ -129,16 +129,16 @@ def fold_layer_params(params: dict, cfg: RuvectorLayerConfig) -> dict:
     return {k: v.float().contiguous() for k, v in folded.items()}
 
 
-def ruvector_layer_apply_block_dense_fused(params: dict, cfg: RuvectorLayerConfig,
-                                           features: torch.Tensor, bdg: BlockDenseGraph,
-                                           io_dtype: torch.dtype | None = None
-                                           ) -> torch.Tensor:
-    """Whole layer as the msg projection plus ONE fused kernel (K1).
+def fused_layer_inputs(params: dict, cfg: RuvectorLayerConfig, features: torch.Tensor,
+                       bdg: BlockDenseGraph, io_dtype: torch.dtype | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's (local tables [nB, T, D] in the compute dtype, message rows
+    [nB, B, D]) for ruvector_layer_apply_block_dense_fused.
 
-    io_dtype=torch.bfloat16 computes the projection in bf16 and stores msg
-    and the output in bf16; the in-kernel GRU/LayerNorm math stays f32.
-    When the layout has no halo (table == block) the local tables are the
-    message rows themselves, with no gather.
+    io_dtype=torch.bfloat16 computes the projection in bf16 and keeps msg
+    in bf16. When the layout has no halo (table == block) the local tables
+    are the message rows themselves, with no gather (the same tensor where
+    msg is already in the compute dtype).
     """
     nb, b, t = bdg.n_blocks, bdg.block, bdg.table
     d = cfg.hidden_dim
@@ -155,8 +155,21 @@ def ruvector_layer_apply_block_dense_fused(params: dict, cfg: RuvectorLayerConfi
     else:
         halo = msg.to(cdt)[bdg.local_ids[:, b:].long()]            # [nB, T-B, D]
         L_tab = torch.cat([msgf.to(cdt), halo], dim=1)
+    return L_tab.contiguous(), msgf.contiguous()
+
+
+def ruvector_layer_apply_block_dense_fused(params: dict, cfg: RuvectorLayerConfig,
+                                           features: torch.Tensor, bdg: BlockDenseGraph,
+                                           io_dtype: torch.dtype | None = None
+                                           ) -> torch.Tensor:
+    """Whole layer as the msg projection plus ONE fused kernel (K1).
+
+    io_dtype=torch.bfloat16 computes the projection in bf16 and stores msg
+    and the output in bf16; the in-kernel GRU/LayerNorm math stays f32
+    (fused_layer_inputs).
+    """
+    L_tab, msgf = fused_layer_inputs(params, cfg, features, bdg, io_dtype)
     out = block_dense_layer_fused(
-        L_tab.contiguous(), msgf.contiguous(), _f32(bdg.wdense),
-        fold_layer_params(params, cfg), _f32(bdg.log_mult),
+        L_tab, msgf, _f32(bdg.wdense), fold_layer_params(params, cfg), _f32(bdg.log_mult),
         dropout=cfg.dropout, eps=cfg.eps)
-    return out.reshape(-1, d)
+    return out.reshape(-1, cfg.hidden_dim)

@@ -233,6 +233,41 @@ def test_block_dense_layer_fused_faults_are_rejected(card):
     assert launch_counts()["block_dense_layer_fused"] == 3
 
 
+def test_block_dense_layer_fused_sweep_bf16_io(card):
+    """K1 as the scale sweep's 10M row runs it (chip_smoke.py's
+    `[scale_sweep]`): no halo, so the table is the bf16 message rows
+    themselves (T == B = 256, the same tensor as msgf), bf16 msg in and
+    out, a bf16-valued edge table widened to float32 (16 edges a real row
+    within its cluster of 128), and a ragged last block whose last 128
+    rows are padding (the message bias, no edge). Within the bf16 limits;
+    the pad rows within one bf16 step of the plain version's."""
+    g = torch.Generator().manual_seed(3)
+    nb, b, d, h, cluster, k = 3, 256, 128, 4, 128, 16
+    real = nb * b - cluster
+    msg = 0.5 * torch.randn(nb * b, d, generator=g)
+    msg[real:] = 0.1 * torch.randn(d, generator=g)
+    rows = torch.arange(nb * b)
+    start = (rows % b) // cluster * cluster
+    pick = torch.rand(nb * b, cluster, generator=g)
+    pick[rows, rows % b - start] = -1.0                       # no self edge
+    cols = start[:, None] + pick.topk(k, dim=1).indices
+    w = torch.rand(nb * b, k, generator=g) + 0.1
+    wd = torch.zeros(nb * b, b).scatter_(1, cols, w / w.sum(1, keepdim=True))
+    wd[real:] = 0.0
+    wd = wd.reshape(nb, b, b).to(torch.bfloat16).float().to(card)
+    msgf = msg.reshape(nb, b, d).to(card, torch.bfloat16)
+    folded = {key: (0.2 * torch.randn(s, generator=g)).to(card)
+              for key, s in _folded_shapes(h, d).items()}
+    got = block_dense_layer_fused(msgf, msgf, wd, folded, dropout=0.0, eps=1e-5)
+    want = block_dense_layer_fused_reference(msgf, msgf, wd, folded, dropout=0.0, eps=1e-5)
+    assert got.dtype == torch.bfloat16
+    assert _within(got, want, K1_BF16_TOL)
+    pad_got, pad_want = got.reshape(-1, d)[real:].float(), want.reshape(-1, d)[real:].float()
+    assert bool(((pad_got - pad_want).abs() <= 2.0 ** -7 * torch.clamp(pad_want.abs(),
+                                                                      min=1.0)).all())
+    assert launch_counts()["block_dense_layer_fused"] == 1
+
+
 # K2's tensor-core body: every width and head count, cycling through ragged
 # B (45, 504), T not a multiple of the 64-row chunk (200, 1000) and lm
 _K2_CASES = [(d, h) + ((45, 200, True), (504, 1000, False), (504, 200, True),
